@@ -1,0 +1,18 @@
+"""depthrenderer_tpu_torch — the depth-image novel-view renderer on PyTorch
+and CUDA.
+
+A port of ``depthrenderer_tpu`` (JAX and Pallas on a TPU) to one NVIDIA
+H100: colour + depth image -> depth-displaced quad-grid mesh -> animated
+novel views rendered by the column-crossing scan rasteriser, whose passes are
+hand-written CUDA kernels (``csrc/scan.cu``) with plain PyTorch twins ->
+PNG and AVI.
+
+It imports ``torch`` and never ``jax`` or the JAX package. Module names follow
+the JAX package's, so each counterpart is easy to find.
+"""
+
+from . import animation, io, meshgen, transforms, utils  # noqa: F401
+from .scene import Camera, Mesh, Texture  # noqa: F401
+from .transforms import Axis  # noqa: F401
+
+__version__ = "0.1.0"

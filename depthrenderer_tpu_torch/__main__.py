@@ -1,0 +1,8 @@
+"""``python -m depthrenderer_tpu_torch`` — the single-scene CLI."""
+
+import sys
+
+from .cli import main
+
+if __name__ == "__main__":
+    sys.exit(main())

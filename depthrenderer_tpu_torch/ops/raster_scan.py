@@ -1,0 +1,1371 @@
+"""The column-crossing scan rasteriser for grid meshes, on PyTorch and CUDA.
+
+Counterpart of ``depthrenderer_tpu/ops/raster_scan.py`` (standard variant,
+``texture``/``debug_z`` modes, raw packed-RGBA output). For each pixel it finds
+the grid cell whose projected micro-triangle covers it:
+
+1. **prep** (:func:`prep_scan`, plain PyTorch): project the grid, then derive
+   the per-band window origin ``w0``, the per-(band, 128-column chunk) scan
+   rows ``bounds`` (``kb | ke << 12 | multi << 24``), the per-block march
+   anchors ``canch`` and the narrow-march offsets ``mid``. Its integers equal
+   the JAX package's exactly.
+2. **solve** (:func:`solve_records`): per (band, scanline, grid column), the
+   first ``nbr`` rows where the column polyline crosses the scanline become
+   records: crossing x and z, bracket row, and ``sr`` strip rows of
+   (sx, sy, z).
+3. **march** (:func:`march_exact`): per pixel, the march picks the records
+   whose crossing pair brackets the pixel (top ``hyps`` by crossing depth),
+   the exact edge tests run on the strip cells, and the colfix fan re-tests
+   every scanned row around each slot's top-1 column where the block still
+   has holes. Depth ties go to the lowest triangle id.
+4. **shade** (:func:`shade`): bilinear RGBA8 sampling into packed uint32
+   pixels, R in the low byte.
+
+Each of solve, march and shade is one hand-written CUDA kernel in
+``csrc/scan.cu`` (built with nvcc on first use) and has a plain PyTorch twin
+(``*_plain``) in this module. A wrapper runs the twin for tensors on the CPU
+and launches the kernel, or raises, for tensors on a CUDA device.
+
+What the port drops from the TPU kernel, on purpose (each one a clamp that
+exists only to fit the TPU's VMEM windows; the port computes the unclamped
+value, and the tests count the pixels where that differs):
+
+* the 64x256 (``tex_rows`` x ``tex_cols``) texture window per 128-pixel
+  block: texture taps read the whole texture, clamped to its edge;
+* the colfix fan's two-subtable column window (``NS2``): fan columns anywhere
+  in the fetch window are tested, and the fan's row bounds are the union over
+  every 128-column chunk its corners land in;
+* the ``pack_xy`` 16+16-bit strip coding: strips are stored as float32.
+  ``ScanConfig.pack_xy`` is accepted and has no effect.
+
+The TPU layout machinery has no counterpart: window double buffers, 8-row
+aligned loads, the sublane-major curve, subtable gather chains,
+``bands_per_step``, ``mxu_march`` and profiling phases. Narrow and wide
+marches follow the JAX kernel's per-block choice exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from . import common
+
+_FAR = float(common.FAR_SENTINEL)
+_NOBASE = -1.0e9  # bracket-row sentinel of an empty record slot
+_F32 = torch.float32
+_I32 = torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanConfig:
+    """Static configuration of the scan rasteriser; the JAX package's
+    ``ScanConfig`` field for field, with the same checks.
+
+    :param rmax: grid rows in a band's window.
+    :param cw: march window width in grid columns (multiple of 128).
+    :param sr: strip rows per record; cells tested per record = sr - 1.
+    :param off: strip start offset above the bracket row.
+    :param nbr: crossing slots kept per (pixel row, column).
+    :param hyps: march hypotheses kept per slot (1 or 2).
+    :param margin: hull margin in grid rows.
+    :param dmax: cap on the neighbour-strip realign delta (None = sr - 1).
+    :param colfix: half-width K of the colfix fan (None = off).
+    :param pack_xy: accepted for config parity; the port stores float32
+        strips, so it has no effect.
+
+    ``edge_cull_threshold``, ``big_grid``, ``dual_col``, ``row_edge``,
+    ``patch``, ``mxu_march``, ``colfix`` other than None or 1 and
+    ``tex_rows``/``tex_cols``
+    are kept so a JAX config converts one to one; the port renders only the
+    standard variant and raises ``NotImplementedError`` for the others.
+    """
+
+    rmax: int = 320
+    cw: int = 256
+    sr: int = 12
+    off: int = 5
+    nbr: int = 2
+    hyps: int = 2
+    margin: int = 10
+    dmax: int | None = None
+    edge_cull_threshold: float | None = None
+    big_grid: bool = False
+    pack_xy: bool = False
+    dual_col: bool = False
+    row_edge: bool = False
+    patch: bool = False
+    mxu_march: bool = False
+    colfix: int | None = None
+    tex_rows: int = 128
+    tex_cols: int = 384
+
+    def __post_init__(self):
+        assert self.cw % 128 == 0 and self.cw >= 128
+        assert 0 < self.off < self.sr
+        assert 1 <= self.nbr <= 4
+        assert self.hyps in (1, 2)
+        assert self.rmax % 8 == 0
+        assert self.rmax < (512 if self.big_grid else 4096)
+        assert self.tex_rows % 8 == 0 and self.tex_cols % 128 == 0
+        assert self.dmax is None or 1 <= self.dmax <= self.sr - 1
+        assert not (self.pack_xy and self.big_grid)
+        assert not (self.dual_col and self.big_grid)
+        assert not (self.row_edge and self.big_grid)
+        assert not (self.patch and self.big_grid)
+        assert not (self.patch and self.row_edge)
+        assert not (self.mxu_march and (self.big_grid or self.hyps != 1
+                                        or self.cw > 256))
+        assert self.colfix is None or (
+            not self.mxu_march and 0 <= self.colfix <= 3)
+
+    @property
+    def nrec(self) -> int:
+        """float32 record planes per slot: sxc, zc, basew + sr strip rows of
+        (sx, sy, z)."""
+        return 3 + 3 * self.sr
+
+
+def _ceil_to(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _vmem_budget_ok(grid_n: int, cfg: ScanConfig) -> bool:
+    """The JAX package's variant switch (its TPU VMEM budget), kept so that
+    :func:`suggest_scan_config` picks the same config as the reference."""
+    cl = _ceil_to(grid_n, 128)
+    rec_bytes = cfg.nbr * (3 + (2 if cfg.pack_xy else 3)
+                           * (2 if cfg.dual_col else 1) * cfg.sr) * 8 * cl * 4
+    if cfg.big_grid:
+        win_bytes = 3 * cfg.rmax * 128 * 4
+        tex_bytes = 2 * cfg.tex_rows * cfg.tex_cols * 4
+        return win_bytes + rec_bytes + tex_bytes < 10 * 2**20
+    win_bytes = 2 * 3 * cfg.rmax * cl * 4
+    curve_bytes = cfg.nbr * 2 * cl * 8 * 4
+    return win_bytes + rec_bytes + curve_bytes < 13 * 2**20
+
+
+def scan_supported(grid_n: int, config: ScanConfig | None = None) -> bool:
+    """Whether the port renders this grid: the standard variant, i.e. any
+    config that does not resolve to ``big_grid`` (d >= 11 at 1080p)."""
+    cfg = config if config is not None else suggest_scan_config(grid_n, 1920,
+                                                                1080)
+    return not cfg.big_grid
+
+
+def suggest_scan_config(grid_n: int, width: int, height: int,
+                        quality: bool = False, **overrides) -> ScanConfig:
+    """The JAX package's heuristic config for an ``grid_n``-vertex grid,
+    line for line (same defaults, same variant switch)."""
+    rmax_explicit = "rmax" in overrides
+    pack_explicit = "pack_xy" in overrides
+    dual_explicit = "dual_col" in overrides
+    rowe_explicit = "row_edge" in overrides
+    colfix_explicit = "colfix" in overrides
+    strips_explicit = {k: k in overrides for k in ("sr", "off", "dmax")}
+    if quality:
+        overrides.setdefault("row_edge", not overrides.get("big_grid", False))
+        overrides.setdefault("dual_col", not overrides.get("big_grid", False))
+        overrides.setdefault("sr", 12)
+        overrides.setdefault("off", 5)
+        overrides.setdefault("dmax", None)
+        overrides.setdefault("hyps", 2)
+    rmax = overrides.pop(
+        "rmax", min(320, _ceil_to(max(grid_n // 3 + 48, 64), 8)))
+    overrides.setdefault("pack_xy", not overrides.get("big_grid", False))
+    overrides.setdefault("hyps", 2 if grid_n < 1025 else 1)
+    if width > 2048:
+        overrides.setdefault("tex_cols", 512)
+    else:
+        overrides.setdefault("tex_cols", 256)
+        overrides.setdefault("tex_rows", 64)
+    cells_per_block = int(128 * grid_n / max(width, 1))
+    half_need = cells_per_block // 2 + grid_n // 13 + 12
+    cw = overrides.pop(
+        "cw",
+        max(128, min(_ceil_to(2 * half_need + 8, 128), _ceil_to(grid_n, 128))),
+    )
+    if (not overrides.get("big_grid", False)
+            and not overrides.get("mxu_march", False) and cw <= 384):
+        overrides.setdefault("colfix", 3 if quality else 1)
+    if overrides.get("colfix") is not None and not quality:
+        overrides.setdefault("sr", 6)
+        overrides.setdefault("off", 2)
+        overrides.setdefault("dmax", 4)
+    overrides.setdefault("sr", 10)
+    overrides.setdefault("off", 4)
+    overrides.setdefault("dmax", 5)
+    cfg = ScanConfig(rmax=rmax, cw=cw, **overrides)
+    if (cfg.dual_col and not dual_explicit and not cfg.big_grid
+            and not _vmem_budget_ok(grid_n, cfg)):
+        cfg = dataclasses.replace(cfg, dual_col=False)
+    if not cfg.big_grid and not _vmem_budget_ok(grid_n, cfg):
+        cfg = dataclasses.replace(
+            cfg, big_grid=True,
+            pack_xy=cfg.pack_xy if pack_explicit else False,
+            dual_col=cfg.dual_col if dual_explicit else False,
+            row_edge=cfg.row_edge if rowe_explicit else False,
+            patch=False,
+            colfix=cfg.colfix if colfix_explicit else (3 if quality else 1),
+            sr=cfg.sr if (strips_explicit["sr"] or quality) else 10,
+            off=cfg.off if (strips_explicit["off"] or quality) else 4,
+            dmax=cfg.dmax if (strips_explicit["dmax"] or quality) else 5,
+            rmax=cfg.rmax if rmax_explicit else min(cfg.rmax, 320))
+    return cfg
+
+
+def check_supported(config: ScanConfig):
+    """Raise ``NotImplementedError`` for a config outside the ported slice."""
+    unported = [name for name, on in (
+        ("big_grid", config.big_grid),
+        ("dual_col", config.dual_col),
+        ("row_edge (quality tier)", config.row_edge),
+        ("patch", config.patch),
+        ("mxu_march", config.mxu_march),
+        ("edge_cull_threshold", config.edge_cull_threshold is not None),
+        ("colfix other than None or 1 (0, and the K >= 2 cascade)",
+         config.colfix not in (None, 1)),
+    ) if on]
+    if unported:
+        raise NotImplementedError(
+            f"scan config {', '.join(unported)} is not ported yet "
+            "(ROADMAP.md queue 1, 'scan variants')")
+
+
+# ---------------------------------------------------------------------------
+# Geometry of one render call
+# ---------------------------------------------------------------------------
+
+
+class ScanGeometry(NamedTuple):
+    """Static sizes shared by prep, the three passes and their kernels."""
+
+    width: int
+    height: int
+    n_r: int
+    n_c: int
+    cl: int        # grid columns padded to 128
+    rpad: int      # grid rows padded to 8 and to rmax
+    nbands: int    # 8-pixel-row bands
+    nchunks: int   # 128-column chunks
+    nblk: int      # 128-pixel blocks per band
+    wl: int        # output width padded to 128
+    hpad: int      # output height padded to 8
+
+    @staticmethod
+    def of(width, height, n_r, n_c, config: ScanConfig) -> "ScanGeometry":
+        cl = _ceil_to(n_c, 128)
+        nbands = -(-height // 8)
+        return ScanGeometry(
+            width=int(width), height=int(height), n_r=int(n_r), n_c=int(n_c),
+            cl=cl, rpad=max(_ceil_to(n_r, 8), config.rmax), nbands=nbands,
+            nchunks=cl // 128, nblk=-(-width // 128),
+            wl=_ceil_to(width, 128), hpad=nbands * 8)
+
+
+# ---------------------------------------------------------------------------
+# Prep (plain PyTorch): projection, hull bands, march anchors
+# ---------------------------------------------------------------------------
+
+
+def pack_texture(texture):
+    """(Ht, Wt, 4) texels -> (Ht, Wt) int32 packed RGBA8, R in the low byte
+    (texels quantised to 8 bits first)."""
+    t8 = common.quantise_texture(texture).to(torch.int64)
+    p = t8[..., 0] | (t8[..., 1] << 8) | (t8[..., 2] << 16) | (t8[..., 3] << 24)
+    return ((p + 2**31) % 2**32 - 2**31).to(_I32).contiguous()
+
+
+def _xla_row_mean(x, dim: int):
+    """Mean over ``dim`` summed in the order XLA's CPU backend sums it: rows
+    fold into windows of 32 (zero-padded half before, half after) summed in
+    order, recursively, then one multiply by the float32 reciprocal of the
+    count. The march anchors round this mean, so the order is kept."""
+    n = x.shape[dim]
+    x = x.movedim(dim, 0)
+    s = x
+    while s.shape[0] > 32:
+        m = s.shape[0]
+        m2 = _ceil_to(m, 32)
+        lo = (m2 - m) // 2
+        z = s.new_zeros((m2,) + s.shape[1:])
+        z[lo:lo + m] = s
+        w = z.reshape((m2 // 32, 32) + s.shape[1:])
+        acc = s.new_zeros((m2 // 32,) + s.shape[1:])
+        for r in range(32):
+            acc = acc + w[:, r]
+        s = acc
+    acc = s.new_zeros(s.shape[1:])
+    for r in range(s.shape[0]):
+        acc = acc + s[r]
+    return acc * common.const(np.float32(1.0) / np.float32(n), acc)
+
+
+def _monotone_interp(q, xp, fp):
+    """``jnp.interp`` over a curve increasing or decreasing in ``xp``,
+    batched over a leading dim: q (T, m), xp (T, n), fp (n,).
+
+    Same search (``jnp.searchsorted``'s binary scan, side='right'), same
+    division guard and edge clamps as JAX, so the rounded anchors agree.
+    """
+    flip = (xp[:, -1] < xp[:, 0])[:, None]
+    xp = torch.where(flip, -xp, xp)
+    q = torch.where(flip, -q, q)
+    n = xp.shape[1]
+    low = torch.zeros(q.shape, dtype=torch.int64, device=q.device)
+    high = torch.full(q.shape, n, dtype=torch.int64, device=q.device)
+    for _ in range(int(np.ceil(np.log2(n + 1)))):
+        mid = (low + high) // 2
+        go_left = q < torch.gather(xp, 1, mid)
+        low, high = torch.where(go_left, low, mid), torch.where(go_left, mid,
+                                                                high)
+    i = torch.clamp(high, 1, n - 1)
+    fpb = fp[None].expand(xp.shape[0], n)
+    f_lo = torch.gather(fpb, 1, i - 1)
+    df = torch.gather(fpb, 1, i) - f_lo
+    x_lo = torch.gather(xp, 1, i - 1)
+    dx = torch.gather(xp, 1, i) - x_lo
+    delta = q - x_lo
+    eps = float(np.spacing(np.finfo(np.float32).eps))
+    dx0 = dx.abs() <= eps
+    f = torch.where(dx0, f_lo, f_lo + (delta / torch.where(
+        dx0, torch.ones_like(dx), dx)) * df)
+    f = torch.where(q < xp[:, :1], fpb[:, :1], f)
+    return torch.where(q > xp[:, -1:], fpb[:, -1:], f)
+
+
+def _pad_rows(x, rows: int, value):
+    """Pad dim 1 of (T, r, ...) to ``rows`` with a constant."""
+    extra = rows - x.shape[1]
+    if extra <= 0:
+        return x
+    pad = x.new_full((x.shape[0], extra) + x.shape[2:], value)
+    return torch.cat([x, pad], dim=1)
+
+
+class ScanPrep(NamedTuple):
+    """Per-frame inputs of the three passes (leading dim T).
+
+    ``win`` (T, 3, RPAD, CL) projected sx, sy, z, edge-padded; ``w0``
+    (T, nbands) window origin in 8-row units; ``bounds`` (T, nbands *
+    nchunks) packed ``kb | ke << 12 | multi << 24``, window-relative;
+    ``canch`` (T, nblocks) march anchors in 8-column units; ``mid``
+    (T, nbands * nblocks) narrow-march offsets (-1 wide, -2 no candidates);
+    ``overflow_rows`` (T,) hull rows clipped by ``rmax``.
+    """
+
+    win: torch.Tensor
+    w0: torch.Tensor
+    bounds: torch.Tensor
+    canch: torch.Tensor
+    mid: torch.Tensor
+    overflow_rows: torch.Tensor
+
+
+def prep_scan(mvps, vertex_grid, width: int, height: int,
+              config: ScanConfig) -> ScanPrep:
+    """Project the grid for each MVP and derive the passes' scalars
+    (the JAX package's ``_prep_scan_impl``, batched over frames)."""
+    if config.big_grid:
+        raise NotImplementedError(
+            "the big_grid scan variant is not ported yet (ROADMAP.md)")
+    vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
+    dev = vertex_grid.device
+    mvps = torch.as_tensor(mvps, dtype=_F32, device=dev)
+    T = mvps.shape[0]
+    n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
+    g = ScanGeometry.of(width, height, n_r, n_c, config)
+    CL, RPAD, nbands, nchunks = g.cl, g.rpad, g.nbands, g.nchunks
+
+    sx, sy, z, inv_w = common.project_vertices(vertex_grid, mvps, width,
+                                               height)   # (T, n_r, n_c)
+    # Near-plane masking: behind-camera vertices get sy = z = 1e9 (no
+    # crossing enters them; every touching cell fails the depth test) and a
+    # bounded sx.
+    bad = inv_w <= 0.0
+    big_f = common.const(1.0e9, sy)
+    sy = torch.where(bad, big_f, sy)
+    z = torch.where(bad, big_f, z)
+    sx = torch.where(bad, torch.clamp(sx, -2.0 * width, 3.0 * width), sx)
+
+    ridx = torch.clamp(torch.arange(RPAD, device=dev), max=n_r - 1)
+    cidx = torch.clamp(torch.arange(CL, device=dev), max=n_c - 1)
+    win = torch.stack([a[:, ridx][:, :, cidx] for a in (sx, sy, z)], dim=1)
+
+    band = torch.arange(nbands, dtype=_F32, device=dev)
+    qy_top = height - (band * 8.0 + 0.5)
+    qy_bot = height - (band * 8.0 + 7.5)
+    qt4 = qy_top[None, :, None, None]
+    qb4 = qy_bot[None, :, None, None]
+
+    # Per-chunk row bounds from the chunk's projected sy extrema, by a
+    # two-level (8-row block, then row) first/last-row search.
+    syp = sy[:, :, cidx]
+    cmin = syp.reshape(T, n_r, nchunks, 128).amin(dim=3)
+    cmax = syp.reshape(T, n_r, nchunks, 128).amax(dim=3)
+    c_lo = cmin[:, 1:] if n_r > 1 else cmin
+    c_hi = cmax[:, :-1] if n_r > 1 else cmax
+    big = 1 << 20
+    nk = c_lo.shape[1]
+    nkb = -(-nk // 8)
+    c_lo_p = _pad_rows(c_lo, nkb * 8, 3.0e38)
+    c_hi_p = _pad_rows(c_hi, nkb * 8, -3.0e38)
+    bl_lo = c_lo_p.reshape(T, nkb, 8, nchunks).amin(dim=2)
+    bl_hi = c_hi_p.reshape(T, nkb, 8, nchunks).amax(dim=2)
+    bs = torch.arange(nkb, device=dev)[None, None, :, None]
+    b0 = torch.where(bl_lo[:, None] <= qt4, bs, big).amin(dim=2)
+    b1 = torch.where(bl_hi[:, None] >= qb4, bs, -1).amax(dim=2)
+
+    def rows_of_block(vals, blk):
+        """Rows blk*8..blk*8+7 of vals (T, nkb*8, nchunks) per (band, chunk)
+        -> (T, nbands, 8, nchunks)."""
+        idx = (torch.clamp(blk, 0, nkb - 1)[:, :, None, :] * 8
+               + torch.arange(8, device=dev)[None, None, :, None])
+        src = vals[:, None].expand(T, nbands, nkb * 8, nchunks)
+        return torch.gather(src, 2, idx)
+
+    ri = torch.arange(8, device=dev)[None, None, :, None]
+    sat0 = rows_of_block(c_lo_p, b0) <= qt4
+    k0 = torch.clamp(b0, 0, nkb - 1) * 8 + torch.where(sat0, ri, big).amin(2)
+    k0 = torch.where(b0 >= big, big, k0)
+    sat1 = rows_of_block(c_hi_p, b1) >= qb4
+    k1 = torch.clamp(b1, 0, nkb - 1) * 8 + torch.where(sat1, ri, -big).amax(2)
+    k1 = torch.where(b1 < 0, -1, k1)
+    empty = k0 > k1
+    r_lo = torch.clamp(k0 - config.margin, 0, max(n_r - 2, 0))
+    r_hi = torch.clamp(k1 + config.margin, 0, max(n_r - 2, 0))
+
+    # Scan rows k in [kb, ke) need row k+1; the strip tail needs sr-off-1.
+    ke_cap = config.rmax - (config.sr - config.off) - 1
+
+    # Multi-crossing flag per (band, chunk): some up-step (s[k] < qy <=
+    # s[k+1]) in an 8-row block overlapping the scan range straddles the band.
+    wsy = win[:, 1]
+    up = wsy[:, 1:] > wsy[:, :-1]
+    up_lo = torch.where(up, wsy[:, :-1], common.const(3.0e38, wsy))
+    up_hi = torch.where(up, wsy[:, 1:], common.const(-3.0e38, wsy))
+    lo_c = up_lo.reshape(T, RPAD - 1, nchunks, 128).amin(dim=3)
+    hi_c = up_hi.reshape(T, RPAD - 1, nchunks, 128).amax(dim=3)
+    nb2 = -(-(RPAD - 1) // 8)
+    lo_b = _pad_rows(lo_c, nb2 * 8, 3.0e38).reshape(T, nb2, 8, nchunks).amin(2)
+    hi_b = _pad_rows(hi_c, nb2 * 8, -3.0e38).reshape(T, nb2, 8, nchunks).amax(2)
+
+    def multi_flag(kb_g, ke_g):
+        bs2 = torch.arange(nb2, device=dev)[None, None, :, None]
+        cond = ((bs2 * 8 + 7 >= kb_g[:, :, None, :])
+                & (bs2 * 8 < ke_g[:, :, None, :])
+                & (lo_b[:, None] < qt4) & (hi_b[:, None] >= qb4))
+        return cond.any(dim=2).to(torch.int64)
+
+    r_lo_band = torch.where(empty, big, r_lo).amin(dim=2)
+    r_lo_band = torch.where(r_lo_band >= big, 0, r_lo_band)
+    w0 = torch.clamp(r_lo_band - (config.off + 3), 0, max(RPAD - config.rmax, 0))
+    w0 = (w0 // 8) * 8                                       # (T, nbands)
+    w0c = w0[:, :, None]
+    kb = torch.clamp(r_lo - w0c, 0, ke_cap)
+    ke = torch.minimum(r_hi + 1 - w0c,
+                       torch.clamp(n_r - 1 - w0c, max=ke_cap))
+    ke = torch.maximum(ke, kb)
+    kb = torch.where(empty, 0, kb)
+    ke = torch.where(empty, 0, ke)
+    overflow_rows = torch.where(
+        empty, 0, torch.clamp((r_hi + 1 - w0c) - ke_cap, min=0)).sum(dim=(1, 2))
+    multi = multi_flag(w0c + kb, w0c + ke)
+    bounds = (kb | (ke << 12) | (multi << 24)).to(_I32).reshape(T, -1)
+
+    # March anchors per 128-pixel block from the mean projected column x.
+    col_x = _xla_row_mean(sx, dim=1)                         # (T, n_c)
+    nblocks = g.nblk
+    qx_c = torch.arange(nblocks, dtype=_F32, device=dev) * 128.0 + 64.0
+    c0 = _monotone_interp(qx_c[None].expand(T, nblocks).contiguous(), col_x,
+                          torch.arange(n_c, dtype=_F32, device=dev))
+    canch = torch.clamp(
+        torch.round((c0 - config.cw / 2.0) / 8.0).to(torch.int64),
+        0, max((CL - config.cw - 128) // 8, 0))
+
+    # Narrow march window per (band, block): candidate pair bases from each
+    # column's sx range over the band window (66 px left, 2 px right slack).
+    if config.cw <= 128:
+        mid = torch.full((T, nbands * nblocks), -1, dtype=_I32, device=dev)
+    else:
+        sxw = win[:, 0]
+        nrb = RPAD // 8
+        bmin = sxw.reshape(T, nrb, 8, CL).amin(dim=2)
+        bmax = sxw.reshape(T, nrb, 8, CL).amax(dim=2)
+        nwb = config.rmax // 8
+        p = 1 << (max(nwb, 1).bit_length() - 1)
+        lmin, lmax = bmin, bmax
+        k = 1
+        while k < p:
+            rep = min(k, nrb)
+            smin_k = torch.cat([lmin[:, k:], lmin[:, -1:].expand(T, rep, CL)],
+                               dim=1)[:, :nrb]
+            smax_k = torch.cat([lmax[:, k:], lmax[:, -1:].expand(T, rep, CL)],
+                               dim=1)[:, :nrb]
+            lmin = torch.minimum(lmin, smin_k)
+            lmax = torch.maximum(lmax, smax_k)
+            k *= 2
+        a_i = torch.clamp(w0 // 8, 0, nrb - 1)
+        b_i = torch.clamp(w0 // 8 + nwb - p, 0, nrb - 1)
+
+        def take(tab, idx):
+            return torch.gather(tab, 1, idx[:, :, None].expand(T, nbands, CL))
+
+        smin = torch.minimum(take(lmin, a_i), take(lmin, b_i))  # (T, nb, CL)
+        smax = torch.maximum(take(lmax, a_i), take(lmax, b_i))
+        pmin = torch.minimum(smin, torch.cat([smin[..., 1:], smin[..., -1:]],
+                                             dim=-1))
+        pmax = torch.maximum(smax, torch.cat([smax[..., 1:], smax[..., -1:]],
+                                             dim=-1))
+        bx = torch.arange(nblocks, dtype=_F32, device=dev)[None, None, :, None]
+        x0 = bx * 128.0 - 66.0
+        x1 = bx * 128.0 + 130.0
+        cand = (pmin[:, :, None, :] <= x1) & (pmax[:, :, None, :] >= x0)
+        cix = torch.arange(CL, dtype=_I32, device=dev)
+        p_lo = torch.where(cand, cix, big).amin(dim=3).to(torch.int64)
+        p_hi = torch.where(cand, cix, -1).amax(dim=3).to(torch.int64)
+        has = p_hi >= p_lo                                   # (T, nb, nblk)
+        canch_m = canch[:, None, :] * 8
+        centre = torch.where(has, (p_lo + p_hi) // 2, canch_m + config.cw // 2)
+        mid_cols = torch.minimum(
+            torch.maximum(((centre - 63) // 8) * 8, canch_m),
+            canch_m + config.cw - 128)
+        ok = has & (p_lo >= mid_cols) & (p_hi <= mid_cols + 126)
+        mid8 = (mid_cols - canch_m) // 8
+        mid = torch.where(ok, mid8, torch.where(has, -1, -2)).to(_I32)
+        mid = mid.reshape(T, -1)
+
+    return ScanPrep(win.contiguous(), (w0 // 8).to(_I32), bounds,
+                    canch.to(_I32), mid.contiguous(),
+                    overflow_rows.to(torch.int64))
+
+
+def minv_rows(mvps) -> np.ndarray:
+    """Rows 2 and 3 of each inverse MVP, inverted in host float64 and
+    rounded to float32: (T, 8). The passes rebuild 1/w and model z of any
+    corner from them."""
+    m = np.asarray(torch.as_tensor(mvps).detach().cpu(), np.float64)
+    minv = np.linalg.inv(m)
+    return np.concatenate([minv[:, 2], minv[:, 3]], axis=1).astype(np.float32)
+
+
+def check_uv_grid(uv_grid):
+    """Require the standard grid parameterisation (u = col/(n_c-1),
+    v = 1 - row/(n_r-1)): the passes rebuild UVs analytically."""
+    if uv_grid is None:
+        return
+    uv_grid = torch.as_tensor(uv_grid)
+    n_r, n_c = uv_grid.shape[0], uv_grid.shape[1]
+    if n_r < 2 or n_c < 2:
+        return
+    corners = uv_grid[::n_r - 1, ::n_c - 1].detach().cpu().numpy()
+    expect = np.array([[[0.0, 1.0], [1.0, 1.0]], [[0.0, 0.0], [1.0, 0.0]]],
+                      np.float32)
+    if not np.allclose(corners, expect, atol=1e-5):
+        raise ValueError(
+            "the scan rasteriser requires the standard grid-mesh UV "
+            f"parameterisation (corner UVs {expect.tolist()}, got "
+            f"{corners.tolist()})")
+
+
+def unpack_raw_frames(raw, width, height):
+    """(T, HPAD, WL) int32 packed RGBA -> (T, H, W, 4) uint8 numpy view."""
+    raw = np.ascontiguousarray(np.asarray(
+        raw.cpu() if isinstance(raw, torch.Tensor) else raw))
+    u8 = raw.view(np.uint8).reshape(raw.shape[0], raw.shape[1],
+                                    raw.shape[2], 4)
+    return u8[:, :height, :width]
+
+
+# ---------------------------------------------------------------------------
+# Constants shared by the plain passes and the kernels
+# ---------------------------------------------------------------------------
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+class _Consts(NamedTuple):
+    """Per-call float32 constants, rounded as the JAX kernel rounds them."""
+
+    sxw: float       # f32(2.0 / width): NDC scale of window x
+    syw: float       # f32(2.0 / height)
+    inv_ncm1: float  # f32(1) / f32(n_c - 1): u step per grid column
+    inv_nrm1: float  # f32(1) / f32(n_r - 1): v step per grid row
+
+    @staticmethod
+    def of(g: ScanGeometry) -> "_Consts":
+        return _Consts(
+            sxw=_f32(2.0 / g.width), syw=_f32(2.0 / g.height),
+            inv_ncm1=_f32(np.float32(1.0) / np.float32(max(g.n_c - 1, 1))),
+            inv_nrm1=_f32(np.float32(1.0) / np.float32(max(g.n_r - 1, 1))))
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch passes (the kernels' twins; run on the CPU and on the card)
+# ---------------------------------------------------------------------------
+
+_BAND_CHUNK = 8  # bands per vectorised step of the plain passes
+
+
+def solve_records_plain(win, w0, bounds, g: ScanGeometry,
+                        config: ScanConfig):
+    """Column solve for one frame -> records (nbands, nbr, nrec, 8, CL).
+
+    For each (band, scanline y, column c) with chunk bounds [kb, ke): the
+    first ``nbr`` rows k (only the first one unless the chunk's multi bit is
+    set) with ``sy[k] >= qy > sy[k+1]`` fill slots in row order. A record is
+    ``sxc, zc`` (the crossing interpolated at ``frac = (sy[k]-qy) /
+    max(sy[k]-sy[k+1], 1e-12)``), ``basew = k`` and strip rows
+    ``k-off .. k-off+sr-1`` of (sx, sy, z); strip rows above the window read
+    0. Empty slots hold ``sxc = zc = FAR``, ``basew = -1e9``, zero strips.
+    """
+    dev = win.device
+    SR, OFF, NBR, R = config.sr, config.off, config.nbr, config.rmax
+    CL = g.cl
+    rec = torch.zeros((g.nbands, NBR, config.nrec, 8, CL), dtype=_F32,
+                      device=dev)
+    rec[:, :, 0:2] = _FAR
+    rec[:, :, 2] = _NOBASE
+    bnd = bounds.reshape(g.nbands, g.nchunks).to(torch.int64)
+    kb_all = (bnd & 0xFFF).repeat_interleave(128, dim=1)         # (nb, CL)
+    ke_all = ((bnd >> 12) & 0xFFF).repeat_interleave(128, dim=1)
+    multi_all = ((bnd >> 24) & 1).repeat_interleave(128, dim=1)
+    kk = torch.arange(R - 1, device=dev)[None, None, :, None]
+    yy = torch.arange(8, dtype=_F32, device=dev)
+    for b0 in range(0, g.nbands, _BAND_CHUNK):
+        b1 = min(b0 + _BAND_CHUNK, g.nbands)
+        B = b1 - b0
+        rows = (w0[b0:b1].to(torch.int64) * 8)[:, None] + torch.arange(
+            R, device=dev)[None]                                 # (B, R)
+        wv = win[:, rows]                                        # (3,B,R,CL)
+        bandf = torch.arange(b0, b1, dtype=_F32, device=dev)
+        qy = (g.height - (bandf[:, None] * 8.0 + yy[None])) - 0.5  # (B, 8)
+        q4 = qy[:, :, None, None]
+        s_hi = wv[1][:, None, :-1]
+        s_lo = wv[1][:, None, 1:]
+        kb = kb_all[b0:b1, None, None]
+        ke = ke_all[b0:b1, None, None]
+        cross = (s_hi >= q4) & (s_lo < q4) & (kk >= kb) & (kk < ke)
+        csum = torch.cumsum(cross.to(torch.int32), dim=2)
+        for s in range(NBR):
+            fire = cross & (csum == s + 1)
+            if s >= 1:
+                fire = fire & (multi_all[b0:b1, None, None] == 1)
+            has = fire.any(dim=2)                                # (B, 8, CL)
+            k = torch.argmax(fire.to(torch.uint8), dim=2)        # (B, 8, CL)
+
+            def at(v, row):
+                src = wv[v][:, None].expand(B, 8, R, CL)
+                return torch.gather(src, 2, row.clamp(0, R - 1)[:, :, None])[
+                    :, :, 0]
+
+            x0, y0, z0 = at(0, k), at(1, k), at(2, k)
+            x1, y1, z1 = at(0, k + 1), at(1, k + 1), at(2, k + 1)
+            denom = torch.clamp(y0 - y1, min=_f32(1e-12))
+            frac = (y0 - qy[:, :, None]) / denom
+            sxc = common.fma(x1 - x0, frac, x0)
+            zc = common.fma(z1 - z0, frac, z0)
+            out = rec[b0:b1, s]                       # (B, nrec, 8, CL) view
+            out[:, 0] = torch.where(has, sxc, out[:, 0])
+            out[:, 1] = torch.where(has, zc, out[:, 1])
+            out[:, 2] = torch.where(has, k.to(_F32), out[:, 2])
+            for sj in range(SR):
+                r = k - OFF + sj
+                for v in range(3):
+                    val = torch.where(r >= 0, at(v, r), torch.zeros_like(x0))
+                    out[:, 3 + 3 * sj + v] = torch.where(
+                        has, val, out[:, 3 + 3 * sj + v])
+    return rec
+
+
+class _Best(NamedTuple):
+    """The division-free winner carry: z numerator, doubled area, triangle
+    id, and u/w, v/w, 1/w scaled by the area."""
+
+    zn: torch.Tensor
+    ar: torch.Tensor
+    id: torch.Tensor
+    uw: torch.Tensor
+    vw: torch.Tensor
+    iw: torch.Tensor
+
+    def where(self, m, other: "_Best") -> "_Best":
+        return _Best(*(torch.where(m, a, b) for a, b in zip(self, other)))
+
+
+def _cell_fold(best: _Best, cell_ok, diag_e, top_e, bottom_e, left_e, right_e,
+               z00, z10, z01, z11, i00, i10, i01, i11, u0, u1, v_top, v_bot,
+               base_id, inv_ncm1, inv_nrm1) -> _Best:
+    """One cell's exact coverage test and winner fold (JAX ``_cell_fold``):
+    the diagonal's sign selects one triangle, coverage needs all three edges
+    >= 0, area > 1e-12 and the depth in [-1, 1]; the nearer depth wins,
+    compared cross-multiplied, ties to the lower triangle id."""
+    d = diag_e >= 0.0
+    w_a = torch.where(d, diag_e, bottom_e)
+    w_b = torch.where(d, top_e, right_e)
+    w_c = torch.where(d, left_e, -diag_e)
+    area = w_a + w_b + w_c
+    ok = cell_ok & (area > _f32(1e-12))
+    inside = ((d & (top_e >= 0.0) & (left_e >= 0.0))
+              | (~d & (bottom_e >= 0.0) & (right_e >= 0.0)))
+    z_a = torch.where(d, z00, z01)
+    z_c = torch.where(d, z01, z11)
+    znum = w_a * z_a + w_b * z10 + w_c * z_c
+    cov = ok & inside & (znum >= -area) & (znum <= area)
+    tid = base_id + torch.where(d, 0.0, 1.0)
+    c_l = znum * best.ar
+    c_r = best.zn * area
+    better = cov & ((c_l < c_r) | ((c_l == c_r) & (tid < best.id)))
+    p_a = w_a * torch.where(d, i00, i01)
+    p_b = w_b * i10
+    p_c = w_c * torch.where(d, i01, i11)
+    iw = p_a + p_b + p_c
+    uw = torch.where(d, u0, u1) * iw + inv_ncm1 * torch.where(d, p_c, -p_b)
+    vw = torch.where(d, v_top, v_bot) * iw + inv_nrm1 * torch.where(d, -p_b,
+                                                                    p_a)
+    new = _Best(znum, area, tid, uw, vw, iw)
+    return new.where(better, best)
+
+
+def _edge(xa, ya, xb, yb, qx, qy):
+    """Edge function e(q) = (xb - xa)(qy - ya) - (yb - ya)(qx - xa)."""
+    return (xb - xa) * (qy - ya) - (yb - ya) * (qx - xa)
+
+
+def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
+                      config: ScanConfig):
+    """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL)
+    float32: u, v, model z, coverage (1.0 / 0.0).
+
+    ``minv`` is the frame's (8,) float32 inverse-MVP rows 2 and 3. Pixels
+    are processed as (bands, 8, blocks, 128); the JAX kernel's block-level
+    gates (slot gate, hypothesis-2 gate, colfix gate and fan row bounds)
+    reduce over each 8x128 block.
+    """
+    dev = rec.device
+    c = _Consts.of(g)
+    out = torch.zeros((4, g.hpad, g.wl), dtype=_F32, device=dev)
+    m2 = [common.const(_f32(minv[k]), rec) for k in range(4)]
+    m3 = [common.const(_f32(minv[4 + k]), rec) for k in range(4)]
+    for b0 in range(0, g.nbands, _BAND_CHUNK):
+        b1 = min(b0 + _BAND_CHUNK, g.nbands)
+        attrs = _march_bands(rec[b0:b1], win, w0[b0:b1], bounds, canch,
+                             mid, m2, m3, b0, g, c, config)
+        out[:, b0 * 8:b1 * 8] = attrs.reshape(4, (b1 - b0) * 8, g.wl)
+    return out
+
+
+def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
+                 g: ScanGeometry, c: _Consts, config: ScanConfig):
+    dev = rec.device
+    B = rec.shape[0]
+    NBR, SR, OFF, CW = config.nbr, config.sr, config.off, config.cw
+    CL, nblk = g.cl, g.nblk
+    CWF = min(CW + 128, CL)
+    MW = CW
+    FAR = common.const(_FAR, rec)
+    inv_ncm1 = common.const(c.inv_ncm1, rec)
+    inv_nrm1 = common.const(c.inv_nrm1, rec)
+    sxw = common.const(c.sxw, rec)
+    syw = common.const(c.syw, rec)
+
+    # Pixel grid (B, 8, nblk, 128) and per-block scalars.
+    lane = torch.arange(128, dtype=_F32, device=dev)
+    blkf = torch.arange(nblk, dtype=_F32, device=dev)
+    qx = ((blkf * 128.0)[:, None] + lane[None]) + 0.5       # (nblk, 128)
+    qx = qx[None, None].expand(B, 8, nblk, 128)
+    rowf = (torch.arange(b0, b0 + B, dtype=_F32, device=dev)[:, None] * 8.0
+            + torch.arange(8, dtype=_F32, device=dev)[None])
+    qy = ((g.height - rowf) - 0.5)[:, :, None, None].expand(B, 8, nblk, 128)
+    canch = canch.to(torch.int64)
+    canch_m = canch * 8                                      # (nblk,)
+    canch_f = canch_m // 128
+    off_f = canch_m - canch_f * 128
+    if CW <= 128:
+        midb = torch.full((B, nblk), -1, dtype=torch.int64, device=dev)
+    else:
+        midb = mid.reshape(g.nbands, nblk)[b0:b0 + B].to(torch.int64)
+    w0r = w0.to(torch.int64) * 8                             # (B,) rows
+    w0f = w0r.to(_F32)[:, None, None, None]
+
+    def blk(x):
+        """(nblk,) or (B, nblk) -> broadcastable over (B, 8, nblk, 128)."""
+        x = x if x.dim() == 2 else x[None].expand(B, nblk)
+        return x[:, None, :, None]
+
+    def block_any(m):
+        """(B, 8, nblk, 128) bool -> per-block any, broadcastable."""
+        return m.any(dim=3, keepdim=True).any(dim=1, keepdim=True)
+
+    def plane(s, p):
+        """Record plane (B, 8, CL) of slot s."""
+        return rec[:, s, p]
+
+    def gather_cols(tab, cols):
+        """tab (B, 8, CL); cols (B|1, 8|1, nblk, L) -> (B, 8, nblk, L)."""
+        L = cols.shape[-1]
+        cols = cols.expand(B, 8, nblk, L).reshape(B, 8, nblk * L)
+        return torch.gather(tab, 2, cols).reshape(B, 8, nblk, L)
+
+    def fetch(s, p, j):
+        """rec[s, p] at fetch-window column j (clamped to [0, CWF-1])."""
+        cols = blk(canch_f * 128) + torch.clamp(j, 0, CWF - 1)
+        return gather_cols(plane(s, p), cols)
+
+    best = _Best(FAR.expand(B, 8, nblk, 128), torch.ones_like(qx),
+                 torch.full_like(qx, 2.0e30), torch.zeros_like(qx),
+                 torch.zeros_like(qx), torch.zeros_like(qx))
+
+    def invw(x, y, z):
+        return (m3[0] * (x * sxw - 1.0) + m3[1] * (y * syw - 1.0)
+                + m3[2] * z + m3[3])
+
+    def exact_record(best_in, s, h):
+        jf = torch.clamp(h, 0.0, float(MW - 1))
+        j1 = jf.to(torch.int64) + blk(off_f)
+        j2 = j1 + 1
+        bw1 = fetch(s, 2, j1)
+        bw2 = fetch(s, 2, j2)
+        strip1 = [tuple(fetch(s, 3 + 3 * k + v, j1) for v in range(3))
+                  for k in range(SR)]
+        strip2 = [tuple(fetch(s, 3 + 3 * k + v, j2) for v in range(3))
+                  for k in range(SR)]
+        # Realign the right strip by the bracket-row delta d = bw2 - bw1:
+        # aligned2[k] = strip2[k - d] for |d| <= dmax, else NaN (which fails
+        # every test it reaches). Where the JAX kernel skips this for a block
+        # with no shear it passes strip2 with NaN z for a missing right
+        # record: the same coverage, lane by lane.
+        dmax = SR - 1 if config.dmax is None else min(config.dmax, SR - 1)
+        d = bw2 - bw1
+        nan = torch.full_like(bw1, float("nan"))
+        aligned2 = []
+        for k in range(SR):
+            acc = (nan, nan, nan)
+            for delta in range(-dmax, dmax + 1):
+                kk = k - delta
+                if 0 <= kk < SR:
+                    m = d == float(delta)
+                    acc = tuple(torch.where(m, strip2[kk][v], acc[v])
+                                for v in range(3))
+            aligned2.append(acc)
+        iw1 = [invw(*strip1[k]) for k in range(SR)]
+        iw2 = [invw(*aligned2[k]) for k in range(SR)]
+        cg = blk(canch_f * 128).to(_F32) + j1.to(_F32)
+        u0 = cg * inv_ncm1
+        u1 = (cg + 1.0) * inv_ncm1
+        rg0 = w0f + bw1 - float(OFF)
+        col_ok = (bw1 > _f32(_NOBASE + 1.0)) & (cg <= float(g.n_c - 2))
+        b = best_in
+        prev_bottom = None
+        for k in range(SR - 1):
+            r_cell = rg0 + float(k)
+            cell_ok = col_ok & (r_cell >= 0.0) & (r_cell <= float(g.n_r - 2))
+            v_top = 1.0 - r_cell * inv_nrm1
+            v_bot = 1.0 - (r_cell + 1.0) * inv_nrm1
+            x00, y00, z00 = strip1[k]
+            x10, y10, z10 = strip1[k + 1]
+            x01, y01, z01 = aligned2[k]
+            x11, y11, z11 = aligned2[k + 1]
+            base_id = (r_cell * float(g.n_c - 1) + cg) * 2.0
+            diag_e = _edge(x10, y10, x01, y01, qx, qy)
+            left_e = _edge(x00, y00, x10, y10, qx, qy)
+            top_e = (_edge(x01, y01, x00, y00, qx, qy) if prev_bottom is None
+                     else -prev_bottom)
+            bottom_e = _edge(x10, y10, x11, y11, qx, qy)
+            right_e = _edge(x11, y11, x01, y01, qx, qy)
+            prev_bottom = bottom_e
+            b = _cell_fold(b, cell_ok, diag_e, top_e, bottom_e, left_e,
+                           right_e, z00, z10, z01, z11, iw1[k], iw1[k + 1],
+                           iw2[k], iw2[k + 1], u0, u1, v_top, v_bot, base_id,
+                           inv_ncm1, inv_nrm1)
+        return b
+
+    def sweep(s, lo, L, need2):
+        """Bracket sweep over record columns lo .. lo+L-1 (per block):
+        returns per pixel (o1, m1, cnt, o2) — the first column of the
+        nearest hit, its key, the hit count and the second hypothesis."""
+        cols = lo[:, None, :, None] + torch.arange(L, device=dev)
+        sxs = gather_cols(plane(s, 0), cols)                 # (B, 8, nblk, L)
+        zcs = gather_cols(plane(s, 1), cols)
+        nxt = torch.roll(sxs, -1, dims=3)
+        mn = torch.minimum(sxs, nxt)
+        mx = torch.maximum(sxs, nxt)
+        mx[..., L - 1] = -_FAR
+        q = qx[..., None]
+        hit = (q >= mn[:, :, :, None, :]) & (q <= mx[:, :, :, None, :])
+        key = torch.where(hit, zcs[:, :, :, None, :], FAR)  # (B,8,nblk,128,L)
+        m1 = key.amin(dim=4)
+        o1 = torch.argmax((key == m1[..., None]).to(torch.uint8), dim=4)
+        cnt = hit.sum(dim=4)
+        o2 = None
+        if need2:
+            key2 = key.scatter(4, o1[..., None], _FAR)
+            m2v = key2.amin(dim=4)
+            o2 = torch.argmax((key2 == m2v[..., None]).to(torch.uint8), dim=4)
+        return o1, m1, cnt, o2
+
+    fixes = []
+    lo_w = canch_m[None].expand(B, nblk)
+    lo_n = canch_m[None] + torch.clamp(midb, min=0) * 8
+    narrow = blk(midb) >= 0
+    for s in range(NBR):
+        zc_w = gather_cols(plane(s, 1), lo_w[:, None, :, None]
+                           + torch.arange(CW, device=dev))
+        any_rec = block_any((zc_w < _f32(_FAR * 0.5)).any(dim=3,
+                                                           keepdim=True)
+                            .expand(B, 8, nblk, 128))
+        if CW > 128:
+            zc_n = gather_cols(plane(s, 1), lo_n[:, None, :, None]
+                               + torch.arange(128, device=dev))
+            any_nar = block_any((zc_n < _f32(_FAR * 0.5)).any(
+                dim=3, keepdim=True).expand(B, 8, nblk, 128))
+            any_rec = torch.where(narrow, any_nar, any_rec)
+        gate = any_rec & (blk(midb) != -2)
+
+        need2 = config.hyps == 2
+        o1w, m1w, cntw, o2w = sweep(s, lo_w, CW, need2)
+        if CW > 128:
+            o1n, m1n, cntn, o2n = sweep(s, lo_n, 128, need2)
+            mid8 = (blk(midb) * 8).to(_F32)
+            h1 = torch.where(narrow, o1n.to(_F32) + mid8, o1w.to(_F32))
+            m1 = torch.where(narrow, m1n, m1w)
+            cnt = torch.where(narrow, cntn, cntw)
+            if need2:
+                h2 = torch.where(narrow, o2n.to(_F32) + mid8, o2w.to(_F32))
+        else:
+            h1, m1, cnt = o1w.to(_F32), m1w, cntw
+            if need2:
+                h2 = o2w.to(_F32)
+        new = exact_record(best, s, h1)
+        if need2:
+            multi = block_any(cnt > 1)
+            new = exact_record(new, s, h2).where(multi, new)
+        best = new.where(gate, best)
+        fixes.append((torch.where(gate, h1, float(MW)),
+                      torch.where(gate, m1, FAR)))
+
+    if config.colfix is not None:
+        for h1s, m1s in fixes:
+            go = block_any((best.id >= _f32(1.0e30)) & (m1s < _f32(_FAR * 0.5)))
+            best = _colfix(best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
+                           canch_f, off_f, b0, g, c, config, m2, m3)
+
+    bz = best.zn / best.ar
+    cov = bz < FAR
+    den = torch.where(best.iw.abs() > _f32(1e-30), best.iw,
+                      torch.ones_like(best.iw))
+    zero = torch.zeros_like(bz)
+    u = torch.where(cov, best.uw / den, zero)
+    v = torch.where(cov, best.vw / den, zero)
+    ndcx = qx * c.sxw - 1.0
+    ndcy = qy * c.syw - 1.0
+    num = (m2[0] * ndcx + m2[1] * ndcy + m2[2] * bz + m2[3]) * best.ar
+    zm = torch.where(cov, num / den, zero)
+    return torch.stack([u, v, zm, cov.to(_F32)])             # (4,B,8,nblk,128)
+
+
+_FAN_OFFSETS = (-1, 0, 1, 2)  # colfix K=1: corner columns j0-1 .. j0+2
+
+
+def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
+            canch_f, off_f, b0, g: ScanGeometry, c: _Consts,
+            config: ScanConfig, m2, m3) -> _Best:
+    """The colfix fan (K=1) for one slot, on the blocks where ``go`` holds.
+
+    For each pixel with a real marched bracket (``m1 < FAR/2``), the fan
+    corner columns are ``j0 - 1 .. j0 + 2`` around its top-1 column ``j0``
+    (cells j0-1, j0 and j0+1); every
+    window row k in the block's [rb0*8, rb1*8) is exact-tested over the
+    fan's cells, masked to [kb_u, ke_u) — the union of the scan bounds of
+    the chunks any valid fan corner of the block lands in.
+    """
+    B, _, nblk, _ = qx.shape
+    sel = go.expand(B, 1, nblk, 1)[:, 0, :, 0].nonzero()    # (Nb, 2)
+    if sel.shape[0] == 0:
+        return best
+    bi, ki = sel[:, 0], sel[:, 1]
+    R = config.rmax
+    nrow_blocks = R // 8
+    CWF = min(config.cw + 128, g.cl)
+    MW = config.cw
+    nsub = CWF // 128
+    NF = len(_FAN_OFFSETS)
+    inv_ncm1 = common.const(c.inv_ncm1, qx)
+    inv_nrm1 = common.const(c.inv_nrm1, qx)
+    sxw = common.const(c.sxw, qx)
+    syw = common.const(c.syw, qx)
+
+    def pick(x):
+        return x[bi, :, ki]                                  # (Nb, 8, 128)
+
+    bsel = _Best(*(pick(t) for t in best))
+    h1, m1, qxs, qys = pick(h1s), pick(m1s), pick(qx), pick(qy)
+    cf = canch_f[ki]                                         # (Nb,)
+    hitok = m1 < _f32(_FAR * 0.5)
+    j0 = torch.clamp(h1, 0.0, float(MW - 1)).to(torch.int64) + off_f[ki][:,
+                                                                          None,
+                                                                          None]
+    ix = [j0 + o for o in _FAN_OFFSETS]
+    colok = [hitok & (x >= 0) & (x <= CWF - 1) for x in ix]
+    col = [cf[:, None, None] * 128 + torch.clamp(x, 0, CWF - 1) for x in ix]
+    cg = [cc.to(_F32) for cc in col]
+
+    # Row bounds: union over the chunks the block's valid fan corners use.
+    band = bi + b0
+    bnd = bounds.reshape(g.nbands, g.nchunks).to(torch.int64)
+    kb_u = torch.full_like(cf, R)
+    ke_u = torch.zeros_like(cf)
+    for tt in range(nsub):
+        used = torch.zeros_like(hitok)
+        for cc in range(NF):
+            used = used | (colok[cc] & (torch.clamp(ix[cc], 0, CWF - 1) // 128
+                                        == tt))
+        used = used.flatten(1).any(dim=1)
+        bt = bnd[band, cf + tt]
+        kbt, ket = bt & 0xFFF, (bt >> 12) & 0xFFF
+        ne = (ket > kbt) & used
+        kb_u = torch.where(ne, torch.minimum(kb_u, kbt), kb_u)
+        ke_u = torch.where(ne, torch.maximum(ke_u, ket), ke_u)
+    rb0 = torch.clamp(kb_u // 8, max=nrow_blocks - 1)
+    rb1 = torch.clamp((ke_u + 8) // 8, max=nrow_blocks)
+    k_lo, k_hi = int(rb0.min()) * 8, int(rb1.max()) * 8
+    if k_hi <= k_lo:
+        return best
+
+    base = w0r[bi][:, None, None]                            # window row 0
+    wflat = win.reshape(3, -1)
+    nb = bi.shape[0]
+
+    def corners(k_rows):
+        """(x, y, z) of window row k_rows (Nb,) at each fan column."""
+        rows = (base + k_rows[:, None, None]) * g.cl
+        return [tuple(wflat[v][(rows + cc).reshape(-1)].reshape(nb, 8, 128)
+                      for v in range(3)) for cc in col]
+
+    def invw(x, y, z):
+        return (m3[0] * (x * sxw - 1.0) + m3[1] * (y * syw - 1.0)
+                + m3[2] * z + m3[3])
+
+    cells = range(NF - 1)
+    start = rb0 * 8
+    kb3, ke3 = kb_u[:, None, None], ke_u[:, None, None]
+    st3 = start[:, None, None]
+    prev_bottom = [None] * len(cells)
+    for k in range(k_lo, k_hi):
+        kt = torch.full_like(cf, k)
+        # Row k+1 past the window re-reads the last 8-row block's first row
+        # (the JAX kernel's clamped block load; such rows are masked).
+        kb_next = torch.where(kt + 1 >= R, torch.full_like(kt, R - 8), kt + 1)
+        gtop = corners(kt)
+        gbot = corners(kb_next)
+        r_cell = w0f[bi] + float(k)                          # (Nb, 1, 1, 1)
+        r_cell = r_cell.reshape(nb, 1, 1)
+        in_rng = (k >= kb3) & (k < ke3)
+        row_ok = in_rng & (r_cell >= 0.0) & (r_cell <= float(g.n_r - 2))
+        v_top = 1.0 - r_cell * inv_nrm1
+        v_bot = 1.0 - (r_cell + 1.0) * inv_nrm1
+        lines = [_edge(gtop[cc][0], gtop[cc][1], gbot[cc][0], gbot[cc][1],
+                       qxs, qys) for cc in range(NF)]
+        iwt = [invw(*gtop[cc]) for cc in range(NF)]
+        iwb = [invw(*gbot[cc]) for cc in range(NF)]
+        first = st3 == k
+        for ci, f in enumerate(cells):
+            x00, y00, z00 = gtop[f]
+            x10, y10, z10 = gbot[f]
+            x01, y01, z01 = gtop[f + 1]
+            x11, y11, z11 = gbot[f + 1]
+            cgf = cg[f]
+            cell_ok = (row_ok & colok[f] & colok[f + 1]
+                       & (cgf <= float(g.n_c - 2)))
+            u0 = cgf * inv_ncm1
+            u1 = (cgf + 1.0) * inv_ncm1
+            base_id = (r_cell * float(g.n_c - 1) + cgf) * 2.0
+            diag_e = _edge(x10, y10, x01, y01, qxs, qys)
+            top0 = _edge(x01, y01, x00, y00, qxs, qys)
+            top_e = (top0 if prev_bottom[ci] is None
+                     else torch.where(first, top0, -prev_bottom[ci]))
+            bottom_e = _edge(x10, y10, x11, y11, qxs, qys)
+            prev_bottom[ci] = bottom_e
+            bsel = _cell_fold(bsel, cell_ok, diag_e, top_e, bottom_e,
+                              lines[f], -lines[f + 1], z00, z10, z01, z11,
+                              iwt[f], iwb[f], iwt[f + 1], iwb[f + 1], u0, u1,
+                              v_top, v_bot, base_id, inv_ncm1, inv_nrm1)
+    out = []
+    for full, part in zip(best, bsel):
+        full = full.clone()
+        full[bi, :, ki] = part
+        out.append(full)
+    return _Best(*out)
+
+
+def shade_plain(attrs, texq, ht: int, wt: int, mode: str):
+    """Bilinear RGBA8 shade of attrs (4, HPAD, WL) -> (HPAD, WL) int32
+    packed pixels, R in the low byte; background (0, 0, 0, 255)."""
+    tex = texq.to(torch.int64)
+    texels = torch.stack([(tex >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
+    rgba = common.shade(attrs[3] > 0.5, attrs[0], attrs[1], attrs[2],
+                        texels.to(_F32), mode).to(torch.int64)
+    p = rgba[..., 0] | (rgba[..., 1] << 8) | (rgba[..., 2] << 16) | (
+        rgba[..., 3] << 24)
+    return ((p + 2**31) % 2**32 - 2**31).to(_I32)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernels (csrc/scan.cu), built with nvcc on first use
+# ---------------------------------------------------------------------------
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc" / "scan.cu"
+_BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+_LIB_PATH = _BUILD_DIR / "libscan.so"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+# Launches of each kernel since the last reset_launch_counts(); a wrapper adds
+# one where it launches its kernel and nowhere else.
+LAUNCHES = {"solve": 0, "march": 0, "shade": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(cuda_home) / "bin" / "nvcc"
+    return str(path) if path.exists() else "nvcc"
+
+
+def build_kernels(force: bool = False) -> Path:
+    """Compile csrc/scan.cu into build/libscan.so (nvcc, sm_90a) unless an
+    up-to-date library exists. Raises ``RuntimeError`` with nvcc's output."""
+    if (_LIB_PATH.exists() and not force
+            and _LIB_PATH.stat().st_mtime >= _CSRC.stat().st_mtime):
+        return _LIB_PATH
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{proc.stdout}\n"
+                           f"{proc.stderr}")
+    os.replace(tmp, _LIB_PATH)
+    return _LIB_PATH
+
+
+class _Params(ctypes.Structure):
+    """Mirror of ``struct ScanParams`` in csrc/scan.cu (field order and
+    types must match)."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "width", "height", "n_r", "n_c", "cl", "rpad", "wl", "hpad",
+        "nbands", "nchunks", "nblk", "rmax", "cw", "cwf", "sr", "off", "nbr",
+        "hyps", "dmax", "colfix", "ht", "wt", "mode")] + [
+        (name, ctypes.c_float) for name in (
+            "sxw", "syw", "inv_ncm1", "inv_nrm1")] + [
+        ("m2", ctypes.c_float * 4), ("m3", ctypes.c_float * 4)]
+
+
+def _load_lib():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build_kernels()))
+            vp, ip = ctypes.c_void_p, ctypes.POINTER(_Params)
+            for name, n_ptr in (("scan_solve", 4), ("scan_march", 7),
+                                ("scan_shade", 3)):
+                fn = getattr(lib, name)
+                fn.restype = ctypes.c_int
+                fn.argtypes = [vp] * n_ptr + [ip, vp]
+            lib.scan_error_string.restype = ctypes.c_char_p
+            lib.scan_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+    return _lib
+
+
+def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
+            mode: str = "texture") -> _Params:
+    c = _Consts.of(g)
+    dmax = config.sr - 1 if config.dmax is None else min(config.dmax,
+                                                         config.sr - 1)
+    p = _Params(
+        width=g.width, height=g.height, n_r=g.n_r, n_c=g.n_c, cl=g.cl,
+        rpad=g.rpad, wl=g.wl, hpad=g.hpad, nbands=g.nbands,
+        nchunks=g.nchunks, nblk=g.nblk, rmax=config.rmax, cw=config.cw,
+        cwf=min(config.cw + 128, g.cl), sr=config.sr, off=config.off,
+        nbr=config.nbr, hyps=config.hyps, dmax=dmax,
+        colfix=-1 if config.colfix is None else config.colfix,
+        ht=int(tex_hw[0]), wt=int(tex_hw[1]),
+        mode=1 if mode == "debug_z" else 0,
+        sxw=c.sxw, syw=c.syw, inv_ncm1=c.inv_ncm1, inv_nrm1=c.inv_nrm1)
+    if minv is not None:
+        for k in range(4):
+            p.m2[k] = _f32(minv[k])
+            p.m3[k] = _f32(minv[4 + k])
+    return p
+
+
+def _check_cuda(tensors, dtypes, shapes):
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dtype != dtypes[name]:
+            raise ValueError(f"{name} must be {dtypes[name]}, got {t.dtype}")
+        if tuple(t.shape) != tuple(shapes[name]):
+            raise ValueError(f"{name} must have shape {tuple(shapes[name])}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name, ptrs, params):
+    lib = _load_lib()
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib, name)(*[ctypes.c_void_p(p) for p in ptrs],
+                             ctypes.byref(params), ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.scan_error_string(err).decode()}")
+    LAUNCHES[name[len("scan_"):]] += 1
+
+
+def _on_cpu(*tensors) -> bool:
+    devs = {t.device.type for t in tensors}
+    if devs == {"cpu"}:
+        return True
+    if devs == {"cuda"}:
+        return False
+    raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
+
+
+def solve_records(win, w0, bounds, g: ScanGeometry, config: ScanConfig):
+    """Column solve for one frame -> records (nbands, nbr, nrec, 8, CL).
+    CPU tensors: :func:`solve_records_plain`; CUDA: the ``solve`` kernel."""
+    if _on_cpu(win, w0, bounds):
+        return solve_records_plain(win, w0, bounds, g, config)
+    _check_cuda({"win": win, "w0": w0, "bounds": bounds},
+                {"win": _F32, "w0": _I32, "bounds": _I32},
+                {"win": (3, g.rpad, g.cl), "w0": (g.nbands,),
+                 "bounds": (g.nbands * g.nchunks,)})
+    rec = torch.empty((g.nbands, config.nbr, config.nrec, 8, g.cl),
+                      dtype=_F32, device=win.device)
+    _launch("scan_solve", [win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
+                           rec.data_ptr()], _params(g, config))
+    return rec
+
+
+def march_exact(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
+                config: ScanConfig):
+    """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL).
+    CPU tensors: :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
+    if _on_cpu(rec, win, w0, bounds, canch, mid):
+        return march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g,
+                                 config)
+    _check_cuda(
+        {"rec": rec, "win": win, "w0": w0, "bounds": bounds, "canch": canch,
+         "mid": mid},
+        {"rec": _F32, "win": _F32, "w0": _I32, "bounds": _I32,
+         "canch": _I32, "mid": _I32},
+        {"rec": (g.nbands, config.nbr, config.nrec, 8, g.cl),
+         "win": (3, g.rpad, g.cl), "w0": (g.nbands,),
+         "bounds": (g.nbands * g.nchunks,), "canch": (g.nblk,),
+         "mid": (g.nbands * g.nblk,)})
+    attrs = torch.empty((4, g.hpad, g.wl), dtype=_F32, device=rec.device)
+    _launch("scan_march",
+            [rec.data_ptr(), win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
+             canch.data_ptr(), mid.data_ptr(), attrs.data_ptr()],
+            _params(g, config, minv=minv))
+    return attrs
+
+
+def shade(attrs, texq, g: ScanGeometry, config: ScanConfig, mode: str):
+    """Shade attrs (4, HPAD, WL) with the packed texture (Ht, Wt) int32 ->
+    (HPAD, WL) int32 packed RGBA. CPU: :func:`shade_plain`; CUDA: the
+    ``shade`` kernel."""
+    ht, wt = texq.shape
+    if _on_cpu(attrs, texq):
+        return shade_plain(attrs, texq, ht, wt, mode)
+    _check_cuda({"attrs": attrs, "texq": texq},
+                {"attrs": _F32, "texq": _I32},
+                {"attrs": (4, g.hpad, g.wl), "texq": (ht, wt)})
+    out = torch.empty((g.hpad, g.wl), dtype=_I32, device=attrs.device)
+    _launch("scan_shade", [attrs.data_ptr(), texq.data_ptr(), out.data_ptr()],
+            _params(g, config, tex_hw=(ht, wt), mode=mode))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Frames
+# ---------------------------------------------------------------------------
+
+FRAME_GROUP = 16  # frames per prep batch
+
+
+def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
+                       config: ScanConfig, mode: str = "texture",
+                       frame_batch: int = FRAME_GROUP):
+    """Render frames through the scan passes, on the device of
+    ``vertex_grid``.
+
+    ``texture`` is the (Ht, Wt, 4) texels (quantised to 8 bits here).
+    :return: ``(frames, overflow)``: (T, HPAD, WL) int32 packed RGBA (see
+        :func:`unpack_raw_frames`) and a device scalar, the most hull rows
+        ``rmax`` clipped in any frame (see :func:`warn_overflow`). Nothing
+        here waits for the device.
+    """
+    check_supported(config)
+    if mode not in ("texture", "debug_z"):
+        raise NotImplementedError(
+            f"scan mode {mode!r} is not ported yet (ROADMAP.md queue 1)")
+    check_uv_grid(uv_grid)
+    vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
+    dev = vertex_grid.device
+    # The inverse-MVP rows come from a host copy; MVPs given on the host
+    # reach the device by a non-blocking copy, so nothing waits here.
+    mvps_host = torch.as_tensor(mvps, dtype=_F32).cpu()
+    minv = minv_rows(mvps_host)
+    mvps = (mvps_host if dev.type == "cpu"
+            else mvps_host.pin_memory().to(dev, non_blocking=True))
+    T = mvps.shape[0]
+    n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
+    g = ScanGeometry.of(width, height, n_r, n_c, config)
+    texq = pack_texture(torch.as_tensor(texture, device=dev))
+    out = torch.empty((T, g.hpad, g.wl), dtype=_I32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(0, T, frame_batch):
+        p = prep_scan(mvps[s:s + frame_batch], vertex_grid, width, height,
+                      config)
+        overflow = torch.maximum(overflow, p.overflow_rows.max())
+        for i in range(p.win.shape[0]):
+            rec = solve_records(p.win[i], p.w0[i], p.bounds[i], g, config)
+            attrs = march_exact(rec, p.win[i], p.w0[i], p.bounds[i],
+                                p.canch[i], p.mid[i], minv[s + i], g, config)
+            out[s + i] = shade(attrs, texq, g, config, mode)
+    return out, overflow
+
+
+def warn_overflow(overflow, config: ScanConfig):
+    """Log when ``rmax`` clipped hull rows (reads the device scalar)."""
+    from ..utils import log
+
+    ovf = int(overflow)
+    if ovf:
+        log(f"WARNING: scan depth-hull window clipped up to {ovf} candidate "
+            f"row(s) (rmax={config.rmax}); raise ScanConfig.rmax or expect "
+            f"misses at extreme depth relief.")

@@ -1,0 +1,120 @@
+"""The scan kernels on an NVIDIA GPU against their plain PyTorch twins.
+
+Card-only tests (marker ``gpu``): each skips without a CUDA device. They
+import neither JAX nor the JAX package, so they run on a machine that has
+only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+
+Scene: a seeded sinusoid depth map with a raised step and a noisy patch,
+meshed at density 7 (a 129x129 grid, cw = 256: narrow and wide marches) and
+rendered at 128x96, frontal and 4 degrees yawed, for every ported
+(hyps, colfix) pair. Bars, with their reasons: the kernels compute the same
+float32 operations in the same order as their twins (the kernel file is built
+with ``--fmad=false``), so records, attributes and pixels must be equal.
+Across devices (``render_clip`` on the card against the plain passes on the
+CPU) the prep's PyTorch ops run on different backends; the bar there is the
+chip smoke's: at least 99.9% of pixels byte-identical and at most 0.1% off
+by more than 1 LSB.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import depthrenderer_tpu_torch as tdr
+from depthrenderer_tpu_torch import animation, transforms
+from depthrenderer_tpu_torch.ops import raster_scan as rs
+from depthrenderer_tpu_torch.render import clip_mvps, render_clip
+
+pytestmark = pytest.mark.gpu
+
+W, H, DENSITY = 128, 96, 7
+N = 2**DENSITY + 1
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def scene_mesh(seed=0):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:48, 0:64]
+    d = 127 + 100 * np.sin(xx / 64 * 6) * np.cos(yy / 48 * 4)
+    d[16:24, 16:32] = 250
+    d[24:30, 32:40] = rng.integers(0, 256, (6, 8))
+    colour = rng.integers(0, 256, (48, 64, 3), np.uint8)
+    mesh = tdr.Mesh.from_texture(tdr.Texture(colour),
+                                 depth_map=np.clip(d, 0, 255).astype(np.uint8),
+                                 density=DENSITY)
+    mesh.vertices[:, 2] *= 4.0
+    return mesh
+
+
+def scene_mvps():
+    base = transforms.matmul(transforms.perspective(18.0, W / H),
+                             transforms.translation(dz=-15.0))
+    yaw = transforms.rotation(torch.tensor(np.deg2rad(4.0), dtype=torch.float32),
+                              axis=transforms.Axis.Y)
+    return torch.stack([base, transforms.matmul(base, yaw)])
+
+
+@pytest.mark.parametrize("hyps,colfix", [(1, 1), (2, 1), (1, None),
+                                         (2, None)])
+def test_kernels_equal_plain_twins(cuda, hyps, colfix):
+    mesh = scene_mesh()
+    cfg = rs.suggest_scan_config(N, W, H, hyps=hyps, colfix=colfix)
+    g = rs.ScanGeometry.of(W, H, N, N, cfg)
+    mvps = scene_mvps()
+    minv = rs.minv_rows(mvps)
+    prep = rs.prep_scan(mvps.to(cuda), mesh.vertices.reshape(N, N, 3).to(cuda),
+                        W, H, cfg)
+    texq = rs.pack_texture(mesh.texture.image.to(cuda))
+    rs.reset_launch_counts()
+    for i in range(mvps.shape[0]):
+        args = (prep.win[i], prep.w0[i], prep.bounds[i])
+        rec = rs.solve_records(*args, g, cfg)
+        assert torch.equal(rec, rs.solve_records_plain(*args, g, cfg))
+        margs = (prep.win[i], prep.w0[i], prep.bounds[i], prep.canch[i],
+                 prep.mid[i], minv[i], g, cfg)
+        attrs = rs.march_exact(rec, *margs)
+        torch.testing.assert_close(attrs, rs.march_exact_plain(rec, *margs),
+                                   rtol=0, atol=0, equal_nan=True)
+        assert attrs[3].mean() > 0.3
+        out = rs.shade(attrs, texq, g, cfg, "texture")
+        assert torch.equal(out, rs.shade_plain(attrs, texq, *texq.shape,
+                                               "texture"))
+    assert rs.LAUNCHES == {"solve": 2, "march": 2, "shade": 2}
+
+
+def test_render_clip_on_the_card_matches_the_cpu(cuda):
+    mesh = scene_mesh()
+    proj = tdr.Camera((64, 48), fov_y=18.0).projection
+    views = transforms.matmul(
+        transforms.translation(dz=-10.0)[None],
+        animation.default_sway().batch(animation.frame_times(300, 60.0)[::60]))
+    on_card = render_clip(mesh, proj, views, W, H, frame_batch=2,
+                          device="cuda")
+    on_cpu = render_clip(mesh, proj, views, W, H, frame_batch=2, device="cpu")
+    assert on_card.shape == on_cpu.shape == (5, H, W, 4)
+    diff = np.abs(on_card.astype(int) - on_cpu.astype(int)).max(axis=-1)
+    assert (diff == 0).mean() >= 0.999 and (diff > 1).mean() <= 0.001
+    assert clip_mvps(proj, views, mesh.transform).shape == (5, 4, 4)
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    cfg = rs.suggest_scan_config(N, W, H)
+    g = rs.ScanGeometry.of(W, H, N, N, cfg)
+    win = torch.zeros((3, g.rpad, g.cl), device=cuda)
+    w0 = torch.zeros((g.nbands,), dtype=torch.int32, device=cuda)
+    bounds = torch.zeros((g.nbands * g.nchunks,), dtype=torch.int32,
+                         device=cuda)
+    with pytest.raises(ValueError, match="win must be"):
+        rs.solve_records(win.double(), w0, bounds, g, cfg)
+    with pytest.raises(ValueError, match="mixed devices"):
+        rs.solve_records(win.cpu(), w0, bounds, g, cfg)
+    rec = rs.solve_records(win, w0, bounds, g, cfg)   # empty bounds: no records
+    assert bool((rec[:, :, 2] == -1.0e9).all())
