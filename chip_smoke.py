@@ -4,23 +4,42 @@
 
 Phases (each prints one line; any failure exits non-zero with its traceback):
 
-1. environment: the card (nvidia-smi), torch, CUDA and nvcc versions; builds
-   the scan kernels (csrc/scan.cu, nvcc) and the native encoders
-   (frameops.c) from the checkout and prints the build seconds.
-2. kernels against their plain PyTorch twins, on a seeded synthetic 640x480
-   colour + depth scene at mesh density 10 rendered at 1920x1080 with the
-   shipped scan config, two sway frames: the records must equal the plain
-   solve's, and at least 99.9% of output pixels must be byte-identical (the
-   rest at most 1 LSB per channel, or a depth-tie winner flip). Each kernel
-   is timed with CUDA events beside its plain twin.
-3. the main path: ``cli.render_scene`` on the same arrays for one sway loop
-   (300 frames at 60 fps) into an MJPG AVI and ``sample_frame.png`` in a
-   temporary directory, with the kernel launch counters reset before and
-   read after; prints render-only and incl.-encode frames/s.
+1. ``env``: the card (nvidia-smi), torch, CUDA and nvcc versions; builds the
+   scan kernels (csrc/scan.cu), the pair kernel (csrc/pair.cu), one nvcc each,
+   started together, and the native encoders (csrc/frameops.c) from the
+   checkout, and prints each build's seconds.
+2. ``kernels_vs_plain`` and ``kernel_times``: the scan kernels against their
+   plain PyTorch twins on a seeded synthetic 640x480 colour + depth scene at
+   mesh density 10 rendered at 1920x1080 with the shipped scan config, two
+   sway frames: records equal, at least 99.9% of output pixels byte-identical
+   (the rest at most 1 LSB, or a depth-tie flip). Each kernel is timed with
+   CUDA events beside its plain twin.
+3. ``main_path``: ``cli.render_scene`` (the scan) on the same arrays for one
+   sway loop (300 frames at 60 fps) into an MJPG AVI and ``sample_frame.png``,
+   with the launch counters set to 0 just before and read just after.
+4. ``tiled_kernel_vs_plain``: the pair kernel against ``raster_pairs_plain``
+   on the first kernel launch of the tiled CLI run below, as that run makes
+   it: the config ``render_clip`` measures from the run's 32 views
+   (``measured_config(q=0.995, anchors=1)`` over frames 0, 15 and 31), its
+   first frame group. Tile rows equal, frames at the scan's bar; kernel,
+   plain twin and prep times, active pairs, plane bytes and peak memory.
+5. ``tiled_path``: ``render_clip(impl="pallas")`` render-only frames/s over
+   64 frames after one warm-up group, then ``cli.render_scene --impl pallas``
+   over 32 frames into an MJPG AVI, with the pair kernel's launch counter set
+   to 0 just before and read just after; the count must be the number of
+   frame groups of the checked config.
+6. ``control``: ``render_frame_grid_exact`` (the lossless control, grid
+   route, 2 strips as bench.py renders 1080p/d10) at sway frame 0: its row
+   anchors and seconds, and the PSNR, the share of pixels off by more than 1
+   LSB and the share off by more than 8 LSB (bench.py's flips) of the scan
+   frame and of the tiled frame against it.
 
-The second-to-last line is the kernel table as JSON, the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits 2 and
-prints no result.
+Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
+read once, outputs written once) over 3.35 TB/s and the operations this
+run's data needs over 67 TFLOP/s (float32 outside the tensor cores), the
+H100 SXM's published peaks. The second-to-last line is the kernel table as
+JSON, the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
+it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -31,38 +50,39 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-SOURCE = "depthrenderer_tpu_torch/csrc/scan.cu"
-REPLACES = "depthrenderer_tpu/ops/raster_scan.py:815"
 WIDTH, HEIGHT, DENSITY = 1920, 1080, 10
+# Frames of the tiled CLI run (the scan's main path keeps its 300-frame loop)
+# and of the tiled render-only measure.
+TILED_FRAMES, TILED_RENDER_FRAMES = 32, 64
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# The control's strips at 1080p/d10, as bench.py renders it; a "flip" is a
+# pixel off by more than 8 LSB, bench.py's winner-flip measure.
+CONTROL_STRIPS = 2
+# Operations per active (pixel, triangle) pair of the pair kernel: four
+# planes at fma + mul + add (4 each) and six comparisons.
+PAIR_OPS = 22
+KERNELS = {
+    "solve": ("depthrenderer_tpu_torch/csrc/scan.cu",
+              "depthrenderer_tpu/ops/raster_scan.py:815"),
+    "march": ("depthrenderer_tpu_torch/csrc/scan.cu",
+              "depthrenderer_tpu/ops/raster_scan.py:815"),
+    "shade": ("depthrenderer_tpu_torch/csrc/scan.cu",
+              "depthrenderer_tpu/ops/raster_scan.py:815"),
+    "pairs": ("depthrenderer_tpu_torch/csrc/pair.cu",
+              "depthrenderer_tpu/ops/raster_pallas.py:184"),
+}
 
 
 def phase(name, **fields):
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in fields.items()),
           flush=True)
-
-
-def synthetic_scene(seed=0, h=480, w=640):
-    """A seeded 640x480 RGBA colour image and a smooth sinusoid depth map
-    with a few steps (uint8, 255 = nearest)."""
-    rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
-    colour = np.stack([
-        (xx / (w - 1)) * 255,
-        (yy / (h - 1)) * 255,
-        ((xx // 16 + yy // 16) % 2) * 200 + 27,
-        np.full((h, w), 255.0),
-    ], axis=-1)
-    colour[..., :3] += rng.normal(0, 6, (h, w, 3))
-    colour = np.clip(np.round(colour), 0, 255).astype(np.uint8)
-    depth = 110 + 60 * np.sin(xx / w * 7 + 0.3) * np.cos(yy / h * 5)
-    depth[h // 4:h // 2, w // 5:w // 2] += 70       # a raised box
-    depth[(xx - 0.7 * w) ** 2 + (yy - 0.6 * h) ** 2 < (0.12 * h) ** 2] = 20
-    return colour, np.clip(np.round(depth), 0, 255).astype(np.uint8)
 
 
 def nvidia_smi():
@@ -93,6 +113,17 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def bound(nbytes, ops):
+    """(bound_ms, bound_by): the card's least time for this work."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def frame_agreement(a, b):
     """Per-pixel max channel difference of two packed frames, the share of
     byte-identical pixels and the count of pixels off by more than 1 LSB
@@ -103,56 +134,98 @@ def frame_agreement(a, b):
     return diff, (diff == 0).float().mean().item(), int((diff > 1).sum())
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=300,
-                    help="main-path frames (default: one 5 s sway loop)")
-    args = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
-              "run needs an NVIDIA GPU", file=sys.stderr)
-        return 2
+def rgba_agreement(a, b):
+    """The same for (..., 4) uint8 frames: (identical share, > 1 LSB
+    share)."""
+    diff = (a.int() - b.int()).abs().amax(dim=-1)
+    return (diff == 0).float().mean().item(), (diff > 1).float().mean().item()
 
-    from depthrenderer_tpu_torch import animation, cli, native, transforms
+
+def check_outputs(result, frames):
+    """The CLI's AVI (RIFF/AVI, frame count) and sample PNG."""
+    video, sample = Path(result["video"]), Path(result["sample"])
+    for path in (video, sample):
+        if not path.is_file() or path.stat().st_size == 0:
+            raise AssertionError(f"missing output {path}")
+    with open(video, "rb") as f:
+        head = f.read(64)
+    if head[:4] != b"RIFF" or head[8:12] != b"AVI ":
+        raise AssertionError("output video is not an AVI")
+    n_frames = int.from_bytes(head[48:52], "little")
+    if n_frames != frames:
+        raise AssertionError(f"AVI holds {n_frames} frames, expected {frames}")
+    with open(sample, "rb") as f:
+        if f.read(8) != b"\x89PNG\r\n\x1a\n":
+            raise AssertionError("sample_frame.png is not a PNG")
+    return video.stat().st_size, sample.stat().st_size
+
+
+def build_all():
+    """Build every kernel source and the encoders, all started together;
+    -> {name: seconds}."""
+    from depthrenderer_tpu_torch import native
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.ops import tiled
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn(force=True)
+        return time.perf_counter() - t0
+
+    jobs = {"scan": rs.build_kernels, "pair": tiled.build_kernels,
+            "frameops": native.build}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def scan_bounds(prep, i, g, cfg, texq):
+    """Bytes and operations of the three scan kernels on frame i."""
+    rec = g.nbands * cfg.nbr * cfg.nrec * 8 * g.cl * 4
+    attrs = 4 * g.hpad * g.wl * 4
+    ints = nbytes(prep.w0[i], prep.bounds[i])
+    solve = (nbytes(prep.win[i]) + ints + rec,
+             2 * 8 * 128 * g.nchunks * g.nbands)
+    # The march sweeps, per pixel, the slot-0 record columns of its block's
+    # march window (128 narrow, cw wide, none when skipped): two comparisons
+    # each. The exact tests and colfix come on top, uncounted.
+    mid = prep.mid[i].long()
+    cols = torch.where(mid >= 0, 128, torch.where(mid == -1, cfg.cw, 0))
+    march = (rec + nbytes(prep.win[i], prep.canch[i], prep.mid[i]) + ints
+             + attrs, 2 * 1024 * int(cols.sum()))
+    shade = (attrs + nbytes(texq) + g.hpad * g.wl * 4, 0)
+    return {"solve": solve, "march": march, "shade": shade}
+
+
+def pair_bounds(planes, tc, tile_pixels):
+    """Bytes and operations of the pair kernel on these planes: the active
+    chunks' planes read once, the rows written once, 22 operations per
+    active pair."""
+    from depthrenderer_tpu_torch.ops import tiled
+
+    cov, attr, px0, py0, jlo, jhi = planes
+    chunks = int((jhi.long() - jlo.long()).sum())
+    pairs = tiled.active_pairs(jlo, jhi, tc, tile_pixels)
+    moved = (chunks * 2 * 12 * tc * 4 + nbytes(px0, py0, jlo, jhi)
+             + cov.shape[0] * tile_pixels * 8 * 4)
+    return moved, PAIR_OPS * pairs, pairs
+
+
+def scan_phase(scene, dev):
+    """Phase 2: the scan kernels against their plain twins at 1080p/d10."""
+    from depthrenderer_tpu_torch import animation, transforms
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.render import clip_mvps
-    from depthrenderer_tpu_torch.scene import Camera, Mesh, Texture
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    dev = torch.device("cuda")
-
-    # -- phase 1: environment and builds ---------------------------------
-    card = nvidia_smi()
-    print(card, flush=True)
-    nvcc = subprocess.run([rs._nvcc(), "--version"], capture_output=True,
-                          text=True, check=True).stdout.strip().splitlines()
-    t0 = time.perf_counter()
-    rs.build_kernels(force=True)
-    t_scan = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native.build(force=True)
-    t_native = time.perf_counter() - t0
-    phase("env", card=repr(card), torch=torch.__version__,
-          cuda=torch.version.cuda, nvcc=repr(nvcc[-1]),
-          build_scan_s=f"{t_scan:.2f}", build_frameops_s=f"{t_native:.2f}")
-
-    # -- phase 2: each kernel against its plain twin ----------------------
-    colour, depth = synthetic_scene()
-    mesh = Mesh.from_texture(Texture(colour), depth_map=depth,
-                             density=DENSITY)
-    mesh.vertices[:, 2] *= 4.0
-    n = int(round(len(mesh.vertices) ** 0.5))
+    mesh, projection, vgrid, _, texture = scene
+    n = vgrid.shape[0]
     cfg = rs.suggest_scan_config(n, WIDTH, HEIGHT)
-    camera = Camera(window_size=(colour.shape[1], colour.shape[0]),
-                    fov_y=18.0)
     times = animation.frame_times(300, 60.0)[[0, 74]]
     views = transforms.matmul(transforms.translation(dz=-10.0)[None],
                               animation.default_sway().batch(times))
-    mvps = clip_mvps(camera.projection, views, mesh.transform)
-    vgrid = mesh.vertices.reshape(n, n, 3).to(dev)
+    mvps = clip_mvps(projection, views, mesh.transform)
     g = rs.ScanGeometry.of(WIDTH, HEIGHT, n, n, cfg)
-    texq = rs.pack_texture(mesh.texture.image.to(dev))
+    texq = rs.pack_texture(texture)
     minv = rs.minv_rows(mvps)
     prep = rs.prep_scan(mvps.to(dev), vgrid, WIDTH, HEIGHT, cfg)
     stats = {"solve": [0.0], "march": [0.0], "shade": [0, 0]}
@@ -214,81 +287,311 @@ def main(argv=None):
     }
     prep_ms = cuda_ms(lambda: rs.prep_scan(mvps.to(dev), vgrid, WIDTH, HEIGHT,
                                            cfg), 5) / mvps.shape[0]
-    kernel_ms = sum(v[0] for v in ms.values())
-    plain_ms = sum(v[1] for v in ms.values())
+    bounds = {k: bound(*v) for k, v in
+              scan_bounds(prep, 0, g, cfg, texq).items()}
     phase("kernel_times", **{f"{k}_ms": f"{v[0]:.4f}" for k, v in ms.items()},
           **{f"{k}_plain_ms": f"{v[1]:.2f}" for k, v in ms.items()},
+          **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()},
           prep_ms_per_frame=f"{prep_ms:.3f}",
-          kernels_ms_per_frame=f"{kernel_ms:.3f}",
-          plain_ms_per_frame=f"{plain_ms:.1f}")
-
-    # -- phase 3: the main path -------------------------------------------
-    with tempfile.TemporaryDirectory() as tmp:
-        out_dir = Path(tmp) / "frames"
-        common = ["scene.png", "scene_depth.png", "-mesh-density",
-                  str(DENSITY), "--width", str(WIDTH), "--height",
-                  str(HEIGHT), "--frames", str(args.frames),
-                  "-output-path", str(out_dir)]
-        # Render only (frames reach the host, nothing is encoded).
-        render_args = cli.build_parser().parse_args(common + ["--no-video"])
-        mesh_r = Mesh.from_texture(Texture(colour), depth_map=depth,
-                                   density=DENSITY)
-        mesh_r.vertices[:, 2] *= render_args.displacement_factor
-        views_r = transforms.matmul(
-            transforms.translation(dz=-10.0)[None],
-            animation.default_sway().batch(
-                animation.frame_times(args.frames, render_args.fps)))
-        from depthrenderer_tpu_torch.render import render_clip
-
-        # Warm-up group: the first call at these shapes pins its host buffers
-        # and grows the allocator.
-        render_clip(mesh_r, camera.projection, views_r[:16], WIDTH, HEIGHT,
-                    on_frames=lambda s, f: None, device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render_clip(mesh_r, camera.projection, views_r, WIDTH, HEIGHT,
-                    on_frames=lambda s, f: None, device="cuda")
-        torch.cuda.synchronize()
-        render_fps = args.frames / (time.perf_counter() - t0)
-
-        # The CLI body: render + MJPG AVI + sample PNG.
-        rs.reset_launch_counts()
-        result = cli.render_scene(colour, depth,
-                                  cli.build_parser().parse_args(common))
-        launches = dict(rs.LAUNCHES)
-        video, sample = Path(result["video"]), Path(result["sample"])
-        for path in (video, sample):
-            if not path.is_file() or path.stat().st_size == 0:
-                raise AssertionError(f"missing output {path}")
-        with open(video, "rb") as f:
-            head = f.read(64)
-        if head[:4] != b"RIFF" or head[8:12] != b"AVI ":
-            raise AssertionError("output video is not an AVI")
-        n_frames = int.from_bytes(head[48:52], "little")
-        if n_frames != args.frames:
-            raise AssertionError(f"AVI holds {n_frames} frames, expected "
-                                 f"{args.frames}")
-        with open(sample, "rb") as f:
-            if f.read(8) != b"\x89PNG\r\n\x1a\n":
-                raise AssertionError("sample_frame.png is not a PNG")
-        for name, count in launches.items():
-            if count <= 0:
-                raise AssertionError(f"kernel {name} never launched on the "
-                                     "main path")
-        phase("main_path", frames=args.frames, launches=json.dumps(launches),
-              render_only_fps=f"{render_fps:.2f}",
-              incl_encode_fps=f"{args.frames / result['seconds']:.2f}",
-              avi_bytes=video.stat().st_size,
-              sample_png_bytes=sample.stat().st_size)
-
+          kernels_ms_per_frame=f"{sum(v[0] for v in ms.values()):.3f}",
+          plain_ms_per_frame=f"{sum(v[1] for v in ms.values()):.1f}")
     errs = {"solve": max(stats["solve"]), "march": max(stats["march"]),
             "shade": float(max(stats["shade"]))}
+    return {k: {"max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+            for k in ms}
+
+
+def cli_args(out_dir, frames, extra=()):
+    from depthrenderer_tpu_torch import cli
+
+    return cli.build_parser().parse_args(
+        ["scene.png", "scene_depth.png", "-mesh-density", str(DENSITY),
+         "--width", str(WIDTH), "--height", str(HEIGHT), "--frames",
+         str(frames), "-output-path", str(out_dir), *extra])
+
+
+def clip_views(frames, fps=60.0):
+    from depthrenderer_tpu_torch import animation, transforms
+
+    return transforms.matmul(
+        transforms.translation(dz=-10.0)[None],
+        animation.default_sway().batch(animation.frame_times(frames, fps)))
+
+
+def smoke_scene(colour, depth, dev):
+    """The scene as the CLI builds it (mesh density ``DENSITY``, depth
+    displacement 4, fov_y 18) -> ``(mesh, projection, vgrid, uvgrid,
+    texture)``, the grids and the texture on ``dev``."""
+    from depthrenderer_tpu_torch.scene import Camera, Mesh, Texture
+
+    mesh = Mesh.from_texture(Texture(colour), depth_map=depth,
+                             density=DENSITY)
+    mesh.vertices[:, 2] *= 4.0
+    n = int(round(len(mesh.vertices) ** 0.5))
+    projection = Camera((colour.shape[1], colour.shape[0]),
+                        fov_y=18.0).projection
+    return (mesh, projection, mesh.vertices.reshape(n, n, 3).to(dev),
+            mesh.texture_coordinates.reshape(n, n, 2).to(dev),
+            mesh.texture.image.to(dev))
+
+
+def render_fps(mesh, projection, frames, warm, **kw):
+    """Render-only frames/s of ``render_clip`` (frames reach the host,
+    nothing is encoded) after one warm-up group: the first call at these
+    shapes pins its host buffers and grows the allocator."""
+    from depthrenderer_tpu_torch.render import render_clip
+
+    views = clip_views(frames)
+    render_clip(mesh, projection, views[:warm], WIDTH, HEIGHT,
+                on_frames=lambda s, f: None, device="cuda", **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    render_clip(mesh, projection, views, WIDTH, HEIGHT,
+                on_frames=lambda s, f: None, device="cuda", **kw)
+    torch.cuda.synchronize()
+    return frames / (time.perf_counter() - t0)
+
+
+def scan_main_path(colour, depth, scene, frames, tmp):
+    """Phase 3: the scan's CLI body, launch counters read around it."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    mesh, projection = scene[:2]
+    fps = render_fps(mesh, projection, frames, 16)
+    rs.reset_launch_counts()
+    result = cli.render_scene(colour, depth, cli_args(tmp / "scan", frames))
+    launches = dict(rs.LAUNCHES)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"kernel {name} never launched on the main "
+                                 "path")
+    avi, png = check_outputs(result, frames)
+    phase("main_path", frames=frames, launches=json.dumps(launches),
+          render_only_fps=f"{fps:.2f}",
+          incl_encode_fps=f"{frames / result['seconds']:.2f}",
+          avi_bytes=avi, sample_png_bytes=png)
+    return launches
+
+
+def tiled_phase(scene, dev):
+    """Phase 4: the pair kernel against its plain twin on the tiled CLI
+    run's first kernel launch: the config ``render_clip`` measures from that
+    run's views, its first frame group -> (config, group, kernel fields)."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_pallas as trp
+    from depthrenderer_tpu_torch.ops import tiled
+    from depthrenderer_tpu_torch.render import clip_mvps, tiled_config
+
+    mesh, projection, vgrid, uvgrid, texture = scene
+    # render_clip's own steps on the CLI run's views (default quantile).
+    mvps = clip_mvps(projection, clip_views(TILED_FRAMES),
+                     mesh.transform).to(dev)
+    cfg = tiled_config(mvps, vgrid, uvgrid, WIDTH, HEIGHT)
+    group = trp.frame_group(WIDTH, HEIGHT, cfg,
+                            cli.build_parser().get_default("frame_batch"))
+    first = mvps[:group]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    planes = trp._prep_stage_batched(first, vgrid, uvgrid, WIDTH, HEIGHT, cfg)
+    rows_k = tiled.raster_pairs(*planes, HEIGHT, cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows_p = tiled.raster_pairs_plain(*planes, HEIGHT, cfg)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    max_abs = float((rows_k - rows_p).abs().max())
+    if not torch.equal(rows_k, rows_p):
+        bad = int((rows_k != rows_p).sum())
+        raise AssertionError(f"{bad} tile-row values differ between the pair "
+                             "kernel and its twin")
+    frames_k = trp._shade_stage_batched(rows_k, texture, WIDTH, HEIGHT, cfg,
+                                        "texture")
+    frames_p = trp._shade_stage_batched(rows_p, texture, WIDTH, HEIGHT, cfg,
+                                        "texture")
+    same, more = rgba_agreement(frames_k, frames_p)
+    covered = float((frames_k[..., :3].amax(-1) > 0).float().mean())
+    if same < 0.999 or more > 0.001 or not 0.3 < covered <= 1.0:
+        raise AssertionError(f"tiled frames: {same:.6f} identical, "
+                             f"{more:.6f} > 1 LSB, {covered:.3f} covered")
+    del rows_p, frames_p, frames_k
+    # Times of the same launch, kernel beside plain twin.
+    tc = planes[0].shape[-1]
+    P = cfg.tile_h * cfg.tile_w
+    kernel_ms = cuda_ms(lambda: tiled.raster_pairs(*planes, HEIGHT, cfg), 3)
+    prep_ms = cuda_ms(lambda: trp._prep_stage_batched(
+        first, vgrid, uvgrid, WIDTH, HEIGHT, cfg), 2) / group
+    moved, ops, pairs = pair_bounds(planes, tc, P)
+    bound_ms, bound_by = bound(moved, ops)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    plane_bytes = trp._coeff_bytes_per_frame(WIDTH, HEIGHT, cfg)
+    phase("tiled_kernel_vs_plain", frames=group, **config_fields(cfg),
+          rows_equal=True, identical_share=f"{same:.6f}",
+          off_more_share=f"{more:.6f}", pairs_ms=f"{kernel_ms:.4f}",
+          pairs_ms_per_frame=f"{kernel_ms / group:.4f}",
+          pairs_plain_ms=f"{plain_ms:.1f}",
+          pairs_bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+          prep_ms_per_frame=f"{prep_ms:.3f}",
+          active_pairs_per_frame=pairs // group,
+          plane_gb_per_frame=f"{plane_bytes / 1e9:.3f}",
+          peak_gib=f"{peak:.2f}")
+    del planes, rows_k
+    return cfg, group, {"max_abs_err": max_abs, "ms": kernel_ms,
+                        "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by}
+
+
+def config_fields(cfg):
+    """The tiled config's window and chunking, as phase fields."""
+    from depthrenderer_tpu_torch.ops import raster_pallas as trp
+
+    tc, nc = trp._chunks(cfg)
+    return {"window": f"{cfg.window_rows}x{cfg.window_cols}",
+            "chunk_tris": cfg.chunk_tris, "tc": tc, "nchunks": 2 * nc}
+
+
+def tiled_main_path(colour, depth, scene, cfg, group, tmp):
+    """Phase 5: render_clip(impl="pallas") and the CLI body with --impl
+    pallas, the pair kernel's launch counter read around the CLI run."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import tiled
+
+    mesh, projection = scene[:2]
+    torch.cuda.reset_peak_memory_stats()
+    fps = render_fps(mesh, projection, TILED_RENDER_FRAMES, 16, impl="pallas")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tiled.reset_launch_counts()
+    args = cli_args(tmp / "pallas", TILED_FRAMES, ["--impl", "pallas"])
+    result = cli.render_scene(colour, depth, args)
+    launches = tiled.LAUNCHES["pairs"]
+    if launches <= 0:
+        raise AssertionError("kernel pairs never launched on the tiled path")
+    # render_clip's groups of --frame-batch frames, each in kernel groups of
+    # the checked config's size.
+    batch = args.frame_batch
+    want = sum(-(-min(batch, TILED_FRAMES - s) // group)
+               for s in range(0, TILED_FRAMES, batch))
+    if launches != want:
+        raise AssertionError(f"{launches} pair launches on the tiled path, "
+                             f"{want} with the checked config")
+    avi, png = check_outputs(result, TILED_FRAMES)
+    phase("tiled_path", render_frames=TILED_RENDER_FRAMES,
+          render_only_fps=f"{fps:.2f}", render_peak_gib=f"{peak:.2f}",
+          frames=TILED_FRAMES, **config_fields(cfg), group=group,
+          launches=json.dumps({"pairs": launches}),
+          incl_encode_fps=f"{TILED_FRAMES / result['seconds']:.2f}",
+          avi_bytes=avi, sample_png_bytes=png)
+    return launches
+
+
+def control_phase(scene, tiled_cfg, dev):
+    """Phase 6: the lossless control at sway frame 0 against the scan and
+    tiled frames."""
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
+    from depthrenderer_tpu_torch.ops import raster_pallas as trp
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps
+    from depthrenderer_tpu_torch.utils import psnr
+
+    mesh, projection, vgrid, uvgrid, texture = scene
+    n = vgrid.shape[0]
+    mvps = clip_mvps(projection, clip_views(1), mesh.transform)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    control, stats = trg.render_frame_grid_exact(
+        mvps[0].to(dev), vgrid, uvgrid, texture, WIDTH, HEIGHT,
+        strips=CONTROL_STRIPS, with_stats=True)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    scan_cfg = rs.suggest_scan_config(n, WIDTH, HEIGHT)
+    raw, _ = rs.render_frames_scan(mvps, vgrid, uvgrid, texture, WIDTH,
+                                   HEIGHT, scan_cfg)
+    scan = rs.unpack_raw_frames(raw.cpu(), WIDTH, HEIGHT)[0]
+    tiled = trp.render_frames_pallas(mvps.to(dev), vgrid, uvgrid, texture,
+                                     WIDTH, HEIGHT, tiled_cfg)[0].cpu().numpy()
+    fields = {}
+    for name, frame in (("scan", scan), ("tiled", tiled)):
+        diff = np.abs(frame.astype(np.int32) - control.astype(np.int32)).max(-1)
+        fields[f"{name}_psnr_db"] = f"{psnr(frame, control):.2f}"
+        fields[f"{name}_off_more_share"] = f"{float((diff > 1).mean()):.6f}"
+        fields[f"{name}_flip_share"] = f"{float((diff > 8).mean()):.6f}"
+    cfg = stats["config"]
+    covered = float((control[..., :3].max(-1) > 0).mean())
+    if not 0.3 < covered <= 1.0:
+        raise AssertionError(f"control frame covered share {covered:.3f}")
+    phase("control", frame=0, row_anchors=cfg.row_anchors,
+          window=f"{cfg.window_rows}x{cfg.window_cols}",
+          strips=stats["strips"], seconds=f"{seconds:.2f}",
+          peak_gib=f"{peak:.2f}", covered_share=f"{covered:.4f}", **fields)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--frames", type=int, default=300,
+                    help="scan main-path frames (default: one 5 s sway loop)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "run needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+
+    from depthrenderer_tpu_torch.ops import cuda_build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    dev = torch.device("cuda")
+    seconds = {}
+
+    # -- phase 1: environment and builds ---------------------------------
+    t_all = time.perf_counter()
+    card = nvidia_smi()
+    print(card, flush=True)
+    nvcc = subprocess.run([cuda_build.nvcc(), "--version"],
+                          capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()
+    builds = build_all()
+    phase("env", card=repr(card), torch=torch.__version__,
+          cuda=torch.version.cuda, nvcc=repr(nvcc[-1]),
+          **{f"build_{k}_s": f"{v:.2f}" for k, v in builds.items()})
+    seconds["env"] = time.perf_counter() - t_all
+
+    from depthrenderer_tpu_torch.synthetic import synthetic_scene
+
+    colour, depth = synthetic_scene()
+    scene = smoke_scene(colour, depth, dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        results = scan_phase(scene, dev)
+        seconds["scan_kernels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        scan_launches = scan_main_path(colour, depth, scene, args.frames, tmp)
+        seconds["main_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tiled_cfg, group, results["pairs"] = tiled_phase(scene, dev)
+        seconds["tiled_kernel"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pair_launches = tiled_main_path(colour, depth, scene, tiled_cfg,
+                                        group, tmp)
+        seconds["tiled_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        control_phase(scene, tiled_cfg, dev)
+        seconds["control"] = time.perf_counter() - t0
+    phase("seconds", **{k: f"{v:.1f}" for k, v in seconds.items()},
+          total=f"{time.perf_counter() - t_all:.1f}")
+
+    launches = dict(scan_launches, pairs=pair_launches)
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES, "launches": launches[name],
-         "max_abs_err": errs[name], "ms": round(ms[name][0], 4),
-         "plain_ms": round(ms[name][1], 2)}
-        for name in ("solve", "march", "shade")]}), flush=True)
+        {"name": name, "route": "cuda", "source": KERNELS[name][0],
+         "replaces": KERNELS[name][1], "launches": launches[name],
+         "max_abs_err": results[name]["max_abs_err"],
+         "ms": round(results[name]["ms"], 4),
+         "plain_ms": round(results[name]["plain_ms"], 2),
+         "bound_ms": round(results[name]["bound_ms"], 4),
+         "bound_by": results[name]["bound_by"], "library_ms": None}
+        for name in ("solve", "march", "shade", "pairs")]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

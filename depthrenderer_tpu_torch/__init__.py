@@ -3,9 +3,9 @@ and CUDA.
 
 A port of ``depthrenderer_tpu`` (JAX and Pallas on a TPU) to one NVIDIA
 H100: colour + depth image -> depth-displaced quad-grid mesh -> animated
-novel views rendered by the column-crossing scan rasteriser, whose passes are
-hand-written CUDA kernels (``csrc/scan.cu``) with plain PyTorch twins ->
-PNG and AVI.
+novel views rendered by the column-crossing scan rasteriser (hand-written
+CUDA kernels in ``csrc/scan.cu``) or the tiled rasteriser (``csrc/pair.cu``),
+each kernel with a plain PyTorch twin -> PNG and AVI.
 
 It imports ``torch`` and never ``jax`` or the JAX package. Module names follow
 the JAX package's, so each counterpart is easy to find.

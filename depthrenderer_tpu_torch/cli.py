@@ -9,7 +9,8 @@ Counterpart of ``depthrenderer_tpu/cli.py`` with the same flags, plus
 Defaults as the reference (fps 60, density 8, displacement 4.0, fov_y 18,
 camera at dz=-10, 5-second composed sway, 3 loops, sample frame at frame 10,
 ``<image name>.avi``). Frames render on the GPU through the scan kernels by
-default; ``--device cpu`` runs the plain PyTorch passes.
+default, or through the tiled rasteriser's pair kernel with ``--impl pallas``
+or ``--impl grid``; ``--device cpu`` runs the plain PyTorch passes.
 
 Options of the JAX CLI that this port does not implement yet raise
 ``NotImplementedError`` naming the ROADMAP item (see :func:`check_ported`).
@@ -37,7 +38,8 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
     p = argparse.ArgumentParser(
         prog=prog,
         description="Render a colour/depth image pair as an animated "
-        "novel-view video with the CUDA column-crossing scan rasteriser.")
+        "novel-view video with the CUDA column-crossing scan rasteriser "
+        "(or the tiled rasteriser: --impl pallas|grid).")
     p.add_argument("image_path", type=Path, help="The path to the colour image.")
     p.add_argument("depth_path", type=Path,
                    help="The path to the depth map of the colour image.")
@@ -66,8 +68,10 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
                    help="Animation loops when --frames is unset (default 3).")
     p.add_argument("--fov-y", type=float, default=18.0, dest="fov_y",
                    help="Vertical field of view in degrees (default 18).")
-    p.add_argument("--mode", choices=("texture", "debug_z"), default="texture",
-                   help="Shading mode (debug_z = the reference's debug shader).")
+    p.add_argument("--mode", choices=("texture", "debug_z", "wireframe"),
+                   default="texture",
+                   help="Shading mode (debug_z = the reference's debug "
+                        "shader; wireframe on the tiled routes only).")
     p.add_argument("--codec", choices=("MJPG", "DIB "), default="MJPG",
                    help="AVI codec: MJPG (compact) or 'DIB ' (uncompressed).")
     p.add_argument("--container", choices=("avi", "mp4"), default="avi",
@@ -76,14 +80,18 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
                    help="Frames rendered per group (default 16).")
     p.add_argument("--binning-quantile", type=float, default=0.995,
                    dest="binning_quantile",
-                   help="Candidate-window quantile of the tiled path; the "
-                        "scan path does not use it.")
+                   help="Candidate-window sizing quantile of the tiled "
+                        "routes: 1.0 = lossless binning (slower), lower = "
+                        "faster with possible speckles at depth edges "
+                        "(default 0.995); the scan does not use it.")
     p.add_argument("--edge-cull", type=float, default=None, dest="edge_cull",
-                   help="Depth-discontinuity edge culling (not ported yet).")
+                   help="Cull triangles whose model-z spread exceeds this "
+                        "(tiled routes; not ported yet on the scan).")
     p.add_argument("--impl", choices=("auto", "grid", "pallas", "scan"),
                    default="auto",
-                   help="Rasteriser (auto = scan; grid and pallas are not "
-                        "ported yet).")
+                   help="Rasteriser: auto = scan; pallas = the tiled route "
+                        "(pair kernel); grid = the tiled route in the grid "
+                        "path's triangle order.")
     p.add_argument("--quality", action="store_true",
                    help="The quality tier (not ported yet).")
     p.add_argument("--patch", action="store_true",
@@ -111,15 +119,17 @@ def check_ported(args):
     implement; none of them falls back to another path."""
     where = "ROADMAP.md queue 1"
     unported = []
-    if args.impl in ("grid", "pallas"):
-        unported.append(f"--impl {args.impl} (the tiled path, {where} "
-                        "'tiled path and the lossless control')")
+    scan = args.impl in ("auto", "scan")
     if args.quality:
         unported.append(f"--quality ({where} 'fidelity tiers')")
     if args.patch:
         unported.append(f"--patch ({where} 'fidelity tiers')")
-    if args.edge_cull is not None:
-        unported.append(f"--edge-cull ({where} 'd11/d12 and edge culling')")
+    if scan and args.edge_cull is not None:
+        unported.append(f"--edge-cull on the scan ({where} 'd11/d12 and "
+                        "edge culling'; --impl pallas|grid cull)")
+    if scan and args.mode == "wireframe":
+        unported.append(f"--mode wireframe on the scan ({where} 'the rest "
+                        "of the default path'; --impl pallas|grid shade it)")
     if args.container == "mp4":
         unported.append(f"--container mp4 ({where} 'MP4 output')")
     if args.overlay_noise:
@@ -145,10 +155,11 @@ def render_scene(colour, depth, args):
     mesh = Mesh.from_texture(texture, depth_map=depth,
                              density=args.mesh_density, debug=True)
     mesh.vertices[:, 2] *= args.displacement_factor
-    if mesh.grid_density >= 11:
+    if args.impl in ("auto", "scan") and mesh.grid_density >= 11:
         raise NotImplementedError(
             f"-mesh-density {mesh.grid_density} needs the big_grid scan "
-            "variant (ROADMAP.md queue 1, 'scan variants')")
+            "variant (ROADMAP.md queue 1, 'scan variants'); --impl pallas "
+            "renders it through the tiled route")
 
     height, width = colour.shape[:2]
     out_w = args.width or width
@@ -199,7 +210,9 @@ def render_scene(colour, depth, args):
     try:
         render_clip(mesh, camera.projection, views, out_w, out_h,
                     mode=args.mode, frame_batch=args.frame_batch,
-                    on_frames=on_frames, colfix=colfix, device=device)
+                    on_frames=on_frames, colfix=colfix, device=device,
+                    impl=args.impl, binning_quantile=args.binning_quantile,
+                    edge_cull_threshold=args.edge_cull)
     finally:
         if video_writer is not None:
             video_writer.cleanup()

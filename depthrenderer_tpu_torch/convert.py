@@ -3,7 +3,8 @@
 The two packages render the same scene with the same config through these:
 the JAX package's ``Mesh`` arrays become this port's :class:`Mesh` and
 :class:`Texture`, and ``dataclasses.asdict`` of its ``ScanConfig`` becomes
-this port's :class:`ScanConfig`. Nothing here imports the JAX package.
+this port's :class:`ScanConfig`, and of its ``RasterConfig`` this port's
+:class:`RasterConfig`. Nothing here imports the JAX package.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 
 from .meshgen import grid_indices
+from .ops.common import RasterConfig
 from .ops.raster_scan import ScanConfig
 from .scene import Mesh, Texture
 
@@ -46,3 +48,10 @@ def scan_config_from_dict(d: dict) -> ScanConfig:
     """This port's :class:`ScanConfig` from ``dataclasses.asdict`` of the
     JAX package's (same field names)."""
     return ScanConfig(**dict(d))
+
+
+def raster_config_from_jax(d: dict) -> RasterConfig:
+    """This port's :class:`RasterConfig` from ``dataclasses.asdict`` of the
+    JAX package's (same field names), so both render with one static
+    config."""
+    return RasterConfig(**dict(d))

@@ -1,9 +1,9 @@
 """The native (C) frame encoders: PNG, baseline JPEG and AVI DIB rows.
 
-Compiles ``depthrenderer_tpu/native/frameops.c`` (the C source the JAX
-package ships; read here as a file, not imported) with the system C compiler
-into this package's git-ignored ``build/`` directory on first use, and loads
-it with ctypes. It needs zlib (``-lz``) for PNG.
+Compiles this package's own ``csrc/frameops.c`` (a copy of the C source the
+JAX package ships beside its encoders) with the system C compiler into the
+git-ignored ``build/`` directory on first use, and loads it with ctypes. It
+needs zlib (``-lz``) for PNG.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ from pathlib import Path
 import numpy as np
 
 _PKG = Path(__file__).resolve().parent
-SOURCE = _PKG.parent / "depthrenderer_tpu" / "native" / "frameops.c"
+SOURCE = _PKG / "csrc" / "frameops.c"
 BUILD_DIR = _PKG / "build"
 LIBRARY = BUILD_DIR / "libframeops.so"
 

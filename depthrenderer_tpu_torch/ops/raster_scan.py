@@ -48,9 +48,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import os
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 from typing import NamedTuple
@@ -58,7 +55,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import common
+from . import common, cuda_build
 
 _FAR = float(common.FAR_SENTINEL)
 _NOBASE = -1.0e9  # bracket-row sentinel of an empty record slot
@@ -1125,12 +1122,6 @@ def shade_plain(attrs, texq, ht: int, wt: int, mode: str):
 # The CUDA kernels (csrc/scan.cu), built with nvcc on first use
 # ---------------------------------------------------------------------------
 
-_CSRC = Path(__file__).resolve().parent.parent / "csrc" / "scan.cu"
-_BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-_LIB_PATH = _BUILD_DIR / "libscan.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
-
 _lib = None
 _lib_lock = threading.Lock()
 
@@ -1144,29 +1135,10 @@ def reset_launch_counts():
         LAUNCHES[k] = 0
 
 
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = Path(cuda_home) / "bin" / "nvcc"
-    return str(path) if path.exists() else "nvcc"
-
-
 def build_kernels(force: bool = False) -> Path:
     """Compile csrc/scan.cu into build/libscan.so (nvcc, sm_90a) unless an
     up-to-date library exists. Raises ``RuntimeError`` with nvcc's output."""
-    if (_LIB_PATH.exists() and not force
-            and _LIB_PATH.stat().st_mtime >= _CSRC.stat().st_mtime):
-        return _LIB_PATH
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(_CSRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{proc.stdout}\n"
-                           f"{proc.stderr}")
-    os.replace(tmp, _LIB_PATH)
-    return _LIB_PATH
+    return cuda_build.build("scan.cu", force=force)
 
 
 class _Params(ctypes.Structure):
@@ -1221,19 +1193,6 @@ def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
     return p
 
 
-def _check_cuda(tensors, dtypes, shapes):
-    for name, t in tensors.items():
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dtype != dtypes[name]:
-            raise ValueError(f"{name} must be {dtypes[name]}, got {t.dtype}")
-        if tuple(t.shape) != tuple(shapes[name]):
-            raise ValueError(f"{name} must have shape {tuple(shapes[name])}, "
-                             f"got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(name, ptrs, params):
     lib = _load_lib()
     stream = torch.cuda.current_stream().cuda_stream
@@ -1245,24 +1204,15 @@ def _launch(name, ptrs, params):
     LAUNCHES[name[len("scan_"):]] += 1
 
 
-def _on_cpu(*tensors) -> bool:
-    devs = {t.device.type for t in tensors}
-    if devs == {"cpu"}:
-        return True
-    if devs == {"cuda"}:
-        return False
-    raise ValueError(f"tensors on mixed devices: {sorted(devs)}")
-
-
 def solve_records(win, w0, bounds, g: ScanGeometry, config: ScanConfig):
     """Column solve for one frame -> records (nbands, nbr, nrec, 8, CL).
     CPU tensors: :func:`solve_records_plain`; CUDA: the ``solve`` kernel."""
-    if _on_cpu(win, w0, bounds):
+    if cuda_build.on_cpu(win, w0, bounds):
         return solve_records_plain(win, w0, bounds, g, config)
-    _check_cuda({"win": win, "w0": w0, "bounds": bounds},
-                {"win": _F32, "w0": _I32, "bounds": _I32},
-                {"win": (3, g.rpad, g.cl), "w0": (g.nbands,),
-                 "bounds": (g.nbands * g.nchunks,)})
+    cuda_build.check_cuda({"win": win, "w0": w0, "bounds": bounds},
+                          {"win": _F32, "w0": _I32, "bounds": _I32},
+                          {"win": (3, g.rpad, g.cl), "w0": (g.nbands,),
+                           "bounds": (g.nbands * g.nchunks,)})
     rec = torch.empty((g.nbands, config.nbr, config.nrec, 8, g.cl),
                       dtype=_F32, device=win.device)
     _launch("scan_solve", [win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
@@ -1274,10 +1224,10 @@ def march_exact(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
                 config: ScanConfig):
     """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL).
     CPU tensors: :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
-    if _on_cpu(rec, win, w0, bounds, canch, mid):
+    if cuda_build.on_cpu(rec, win, w0, bounds, canch, mid):
         return march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g,
                                  config)
-    _check_cuda(
+    cuda_build.check_cuda(
         {"rec": rec, "win": win, "w0": w0, "bounds": bounds, "canch": canch,
          "mid": mid},
         {"rec": _F32, "win": _F32, "w0": _I32, "bounds": _I32,
@@ -1299,11 +1249,11 @@ def shade(attrs, texq, g: ScanGeometry, config: ScanConfig, mode: str):
     (HPAD, WL) int32 packed RGBA. CPU: :func:`shade_plain`; CUDA: the
     ``shade`` kernel."""
     ht, wt = texq.shape
-    if _on_cpu(attrs, texq):
+    if cuda_build.on_cpu(attrs, texq):
         return shade_plain(attrs, texq, ht, wt, mode)
-    _check_cuda({"attrs": attrs, "texq": texq},
-                {"attrs": _F32, "texq": _I32},
-                {"attrs": (4, g.hpad, g.wl), "texq": (ht, wt)})
+    cuda_build.check_cuda({"attrs": attrs, "texq": texq},
+                          {"attrs": _F32, "texq": _I32},
+                          {"attrs": (4, g.hpad, g.wl), "texq": (ht, wt)})
     out = torch.empty((g.hpad, g.wl), dtype=_I32, device=attrs.device)
     _launch("scan_shade", [attrs.data_ptr(), texq.data_ptr(), out.data_ptr()],
             _params(g, config, tex_hw=(ht, wt), mode=mode))

@@ -1,0 +1,96 @@
+"""Where a clip's device time goes: ``render_clip`` under ``torch.profiler``.
+
+    python -m depthrenderer_tpu_torch.profiling [--impl scan|pallas|grid]
+
+Renders the synthetic scene (:mod:`.synthetic`) at mesh density 10 and
+1920x1080, 64 frames of the default sway at 60 fps, with a sink that drops
+the frames, after one 16-frame warm-up group, and prints one JSON
+line: the card (``nvidia-smi`` name and power limit), wall ms, device busy ms
+(the sum of the CUDA kernels' and copies' self time), the busy share, peak
+device memory, and each kernel's ms per frame with its share of the busy
+time. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import time
+
+import torch
+
+WIDTH, HEIGHT, DENSITY, FRAMES, WARM = 1920, 1080, 10, 64, 16
+TOP = 12   # kernels listed
+
+
+def profile_clip(impl="pallas"):
+    """Profile one ``render_clip`` run -> dict (see the module docstring)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import animation, transforms
+    from .render import render_clip
+    from .scene import Camera, Mesh, Texture
+    from .synthetic import synthetic_scene
+
+    colour, depth = synthetic_scene()
+    mesh = Mesh.from_texture(Texture(colour), depth_map=depth,
+                             density=DENSITY)
+    mesh.vertices[:, 2] *= 4.0
+    projection = Camera((colour.shape[1], colour.shape[0]),
+                        fov_y=18.0).projection
+    views = transforms.matmul(
+        transforms.translation(dz=-10.0)[None],
+        animation.default_sway().batch(animation.frame_times(FRAMES, 60.0)))
+
+    def run(v):
+        render_clip(mesh, projection, v, WIDTH, HEIGHT, impl=impl,
+                    on_frames=lambda s, f: None, device="cuda")
+        torch.cuda.synchronize()
+
+    run(views[:WARM])
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(views)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if "CUDA" not in str(e.device_type):
+            continue   # host ops: their kernels are listed on their own
+        ms = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            rows.append((e.key, ms))
+    busy = sum(ms for _, ms in rows)
+    rows.sort(key=lambda r: -r[1])
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    return {
+        "card": card, "impl": impl, "frames": FRAMES,
+        "size": f"{WIDTH}x{HEIGHT}", "density": DENSITY,
+        "wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy, 2),
+        "busy_share": round(busy / wall_ms, 4),  # 0 if nothing was traced
+        "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
+        "kernels": [{"name": k[:80], "ms_per_frame": round(ms / FRAMES, 4),
+                     "share": round(ms / max(busy, 1e-9), 4)}
+                    for k, ms in rows[:TOP]],
+    }
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--impl", choices=("scan", "pallas", "grid"),
+                    default="pallas")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profiling needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    print(json.dumps(profile_clip(args.impl)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

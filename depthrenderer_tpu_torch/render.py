@@ -1,11 +1,11 @@
-"""Clip rendering: the whole camera path as MVP batches through the scan passes.
+"""Clip rendering: the whole camera path as MVP batches through a rasteriser.
 
-Counterpart of ``depthrenderer_tpu/render.py``'s :func:`render_clip` (the scan
-path; ``MeshRenderer`` and the tiled and grid paths are not ported yet). Frames
-render in groups on the current CUDA stream; each group's packed frames are
-copied into a pinned host buffer with ``non_blocking`` copies and a CUDA event,
-and the host unpacks and hands group k to ``on_frames`` while group k+1
-renders.
+Counterpart of ``depthrenderer_tpu/render.py``'s :func:`render_clip`: the
+column-crossing scan (the default), the tiled Pallas route and the tiled grid
+route (``MeshRenderer`` is not ported yet). Frames render in groups on the
+current CUDA stream; each group's frames are copied into a pinned host buffer
+with ``non_blocking`` copies and a CUDA event, and the host hands group k to
+``on_frames`` while group k+1 renders.
 """
 
 from __future__ import annotations
@@ -15,9 +15,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from .ops import raster_scan
+from .ops import raster_grid, raster_pallas, raster_scan
+from .ops.common import RasterConfig
 from .scene import Mesh
 from .transforms import matmul
+from .utils import log
+
+IMPLS = ("scan", "pallas", "grid")
 
 
 def resolve_device(device) -> torch.device:
@@ -35,14 +39,16 @@ def resolve_device(device) -> torch.device:
 
 def _auto_impl(grid_n: int, width: int = 1920, height: int = 1080) -> str:
     """The rasteriser for a grid: the scan whenever the config it resolves
-    to is the standard variant. The tiled path the JAX package falls back to
-    is not ported, so anything else raises."""
+    to is the standard variant. Anything else raises; the tiled route is an
+    explicit choice (``impl="pallas"``), never a silent switch."""
     cfg = raster_scan.suggest_scan_config(grid_n, width, height)
     if raster_scan.scan_supported(grid_n, cfg):
         return "scan"
     raise NotImplementedError(
         f"grid n={grid_n} resolves to the big_grid scan variant (d >= 11), "
-        "which is not ported yet (ROADMAP.md queue 1, 'scan variants')")
+        "which is not ported yet (ROADMAP.md queue 1, 'scan variants'); "
+        "choose the tiled route explicitly with impl='pallas' (CLI: --impl "
+        "pallas)")
 
 
 def _grid_arrays(mesh: Mesh):
@@ -61,24 +67,55 @@ def clip_mvps(projection, view_batch, model):
     return matmul(matmul(proj, views), model)
 
 
+def tiled_config(mvps, vertex_grid, uv_grid, width, height,
+                 binning_quantile: float = 0.995,
+                 edge_cull_threshold: Optional[float] = None) -> RasterConfig:
+    """The tiled routes' config for a clip: ``measured_config`` over three
+    sampled MVPs, with a warning when the quantile-sized window drops
+    candidates at those views (GL never drops a triangle)."""
+    sample = mvps[np.linspace(0, len(mvps) - 1,
+                              min(3, len(mvps))).astype(int)]
+    cfg = raster_grid.measured_config(
+        sample, vertex_grid, width, height, quantile=binning_quantile,
+        edge_cull_threshold=edge_cull_threshold)
+    overflow = int(raster_grid.binning_overflow_tiles(
+        sample, vertex_grid, uv_grid, width, height, cfg).max())
+    if overflow:
+        log(f"WARNING: {overflow} tile(s) exceed the candidate window at the "
+            f"sampled views (binning_quantile={binning_quantile}); triangles "
+            f"near strong depth edges may be dropped there. Re-run with "
+            f"--binning-quantile 1.0 for lossless binning.")
+    return cfg
+
+
 def render_clip(mesh: Mesh, projection, view_batch, width, height,
-                config: Optional[raster_scan.ScanConfig] = None,
-                mode: str = "texture",
+                config=None, mode: str = "texture",
                 frame_batch: int = raster_scan.FRAME_GROUP,
                 on_frames: Optional[Callable[[int, np.ndarray], None]] = None,
-                colfix="auto", device="cuda"):
-    """Render a clip of a grid mesh through the scan passes.
+                colfix="auto", device="cuda", impl: str = "auto",
+                binning_quantile: float = 0.995,
+                edge_cull_threshold: Optional[float] = None):
+    """Render a clip of a grid mesh.
 
     :param mesh: a grid :class:`Mesh` (its tensors move to ``device``).
     :param projection: (4, 4) projection matrix.
     :param view_batch: (T, 4, 4) per-frame view matrices.
-    :param config: a :class:`ScanConfig`; by default
-        ``suggest_scan_config`` for the grid and output size.
-    :param frame_batch: frames per group (one prep batch, one host copy).
+    :param config: a :class:`ScanConfig` (scan) or :class:`RasterConfig`
+        (tiled routes); by default ``suggest_scan_config``, or the tiled
+        routes' measured config (:func:`tiled_config`).
+    :param frame_batch: frames per group (one host copy; the tiled routes
+        clamp their kernel groups further by ``tiled.COEFF_BUDGET``).
     :param on_frames: ``(start_index, frames)`` per group, frames (k, H, W, 4)
         uint8; called for group k while group k+1 renders.
-    :param colfix: ``"auto"``, ``None`` or ``1`` (the ported fan widths).
+    :param colfix: ``"auto"``, ``None`` or ``1`` (the ported fan widths;
+        scan only).
     :param device: ``"cuda"`` (kernels) or ``"cpu"`` (plain passes).
+    :param impl: ``"auto"`` (= the scan where it is ported), ``"scan"``,
+        ``"pallas"`` or ``"grid"``.
+    :param binning_quantile: the tiled routes' window quantile (1.0 =
+        lossless binning).
+    :param edge_cull_threshold: the tiled routes' depth-discontinuity edge
+        cull (the scan's is not ported yet).
     :return: the frame count, or the stacked (T, H, W, 4) uint8 frames when
         ``on_frames`` is None.
     """
@@ -88,24 +125,66 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     vgrid, uvgrid, n = _grid_arrays(mesh)
-    _auto_impl(n, width, height)
-    if config is None:
-        config = raster_scan.suggest_scan_config(
-            n, width, height,
-            **({} if colfix == "auto" else {"colfix": colfix}))
-    raster_scan.check_supported(config)
-
+    if impl in ("auto", "scan"):
+        impl = _auto_impl(n, width, height)   # raises for big_grid
+    elif impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     vgrid = vgrid.to(device)
     uvgrid = uvgrid.to(device)
     texture = mesh.texture.image.to(device)
     mvps = clip_mvps(projection, view_batch, mesh.transform)
     total = int(mvps.shape[0])
-    g = raster_scan.ScanGeometry.of(width, height, n, n, config)
     cuda = device.type == "cuda"
+
+    if impl == "scan":
+        if edge_cull_threshold is not None:
+            raise NotImplementedError(
+                "edge culling on the scan is not ported yet (ROADMAP.md "
+                "queue 1, 'd11/d12 and edge culling'); the tiled routes "
+                "(impl='pallas' or 'grid') cull")
+        if config is None:
+            config = raster_scan.suggest_scan_config(
+                n, width, height,
+                **({} if colfix == "auto" else {"colfix": colfix}))
+        raster_scan.check_supported(config)
+        g = raster_scan.ScanGeometry.of(width, height, n, n, config)
+        host_shape = (g.hpad, g.wl)
+        host_dtype = torch.int32
+        overflow = torch.zeros((), dtype=torch.int64, device=device)
+
+        def render(mvps_g):
+            nonlocal overflow
+            dev, ovf = raster_scan.render_frames_scan(
+                mvps_g, vgrid, uvgrid, texture, width, height, config, mode,
+                frame_batch=frame_batch)
+            overflow = torch.maximum(overflow, ovf)
+            return dev
+
+        def unpack(host):
+            return raster_scan.unpack_raw_frames(host, width, height)
+    else:
+        # One copy of the MVPs to the device before any work is queued
+        # (a later pageable copy would wait for the stream).
+        mvps = mvps.to(device)
+        if config is None:
+            config = tiled_config(mvps, vgrid, uvgrid, width, height,
+                                  binning_quantile, edge_cull_threshold)
+        frames_fn = (raster_pallas.render_frames_pallas if impl == "pallas"
+                     else raster_grid.render_frames_grid)
+        host_shape = (height, width, 4)
+        host_dtype = torch.uint8
+
+        def render(mvps_g):
+            return frames_fn(mvps_g, vgrid, uvgrid, texture, width, height,
+                             config, mode, frame_batch=frame_batch)
+
+        def unpack(host):
+            return host.numpy()
+
     collected = []
 
     def deliver(start, host):
-        frames = raster_scan.unpack_raw_frames(host, width, height)
+        frames = unpack(host)
         if on_frames is None:
             collected.append(frames.copy())
         else:
@@ -113,16 +192,12 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
 
     # Two pinned host buffers: group k's copy lands in one while the host
     # reads group k-1 out of the other.
-    hosts = ([torch.empty((frame_batch, g.hpad, g.wl), dtype=torch.int32,
+    hosts = ([torch.empty((frame_batch,) + host_shape, dtype=host_dtype,
                           pin_memory=True) for _ in range(2)] if cuda else [])
     pending = []  # (start, host tensor, event)
-    overflow = torch.zeros((), dtype=torch.int64, device=device)
     for i, start in enumerate(range(0, total, frame_batch)):
         stop = min(start + frame_batch, total)
-        dev, ovf = raster_scan.render_frames_scan(
-            mvps[start:stop], vgrid, uvgrid, texture, width, height, config,
-            mode, frame_batch=frame_batch)
-        overflow = torch.maximum(overflow, ovf)
+        dev = render(mvps[start:stop])
         if not cuda:
             deliver(start, dev)
             continue
@@ -138,7 +213,8 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     for s, h, e in pending:
         e.synchronize()
         deliver(s, h)
-    raster_scan.warn_overflow(overflow, config)
+    if impl == "scan":
+        raster_scan.warn_overflow(overflow, config)
     if on_frames is None:
         return np.concatenate(collected, axis=0)
     return total

@@ -1,13 +1,15 @@
-"""Small host-side utilities: logging and frame timing.
+"""Small host-side utilities: logging, frame timing and PSNR.
 
-Counterpart of ``depthrenderer_tpu/utils.py`` (``log`` and ``FrameTimer``;
-reference ``DepthRenderer/utils.py:12-17, 523-538``).
+Counterpart of ``depthrenderer_tpu/utils.py`` (``log``, ``FrameTimer`` and
+``psnr``; reference ``DepthRenderer/utils.py:12-17, 523-538``).
 """
 
 from __future__ import annotations
 
 import datetime
 import time
+
+import numpy as np
 
 
 def log(message):
@@ -34,3 +36,14 @@ class FrameTimer:
         self.delta = now - self.last_frame_time
         self.elapsed += self.delta
         self.last_frame_time = now
+
+
+def psnr(a, b, max_value=255.0):
+    """Peak signal-to-noise ratio in dB between two images (uint8 or
+    float)."""
+    a = np.asarray(a, dtype=np.float64)
+    b = np.asarray(b, dtype=np.float64)
+    mse = np.mean((a - b) ** 2)
+    if mse == 0:
+        return float("inf")
+    return float(10.0 * np.log10(max_value**2 / mse))

@@ -338,7 +338,8 @@ def test_render_clip_cuda_raises_without_a_card(checker_texture):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--impl", "grid"], ["--impl", "pallas"], ["--quality"], ["--patch"],
+    ["--mode", "wireframe"], ["--impl", "scan", "--edge-cull", "0.5"],
+    ["--quality"], ["--patch"],
     ["--edge-cull", "0.5"], ["--container", "mp4"],
     ["--overlay-noise", "32", "16"], ["--colfix", "0"], ["--colfix", "2"],
     ["--colfix", "3"],
