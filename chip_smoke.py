@@ -33,6 +33,20 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    anchors and seconds, and the PSNR, the share of pixels off by more than 1
    LSB and the share off by more than 8 LSB (bench.py's flips) of the scan
    frame and of the tiled frame against it.
+7. ``tiers``: the scan's fidelity tiers, ``--quality`` and ``--patch
+   --colfix 3``. For each, on sway frame 74 at the configs the render path
+   derives (``raster_scan.tier_configs``): pass 1, then (patch) the hole
+   flags and block gates from the kernel chain's raster z, then pass 2 on
+   the transposed problem (sparse for the patch tier), each kernel against
+   its plain twin (records equal on the bands a pass renders, attributes
+   max abs 0, packed pixels and raster z at the scan's 99.9 % bar), the
+   merged kernel frame against the merged plain frame at the same bar, and
+   each kernel's time beside its twin's and its bound. Then
+   ``cli.render_scene`` with each tier's flags over 32 frames (launch
+   counters set to 0 before, read after: ``solve``, ``march`` and ``shade``
+   each 2 x frames), render-only and incl.-encode frames/s, and each tier's
+   frame 0 against the control beside the default scan's; the phase fails if
+   the quality tier's > 8 LSB share is above the default scan's.
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
@@ -60,6 +74,12 @@ WIDTH, HEIGHT, DENSITY = 1920, 1080, 10
 # Frames of the tiled CLI run (the scan's main path keeps its 300-frame loop)
 # and of the tiled render-only measure.
 TILED_FRAMES, TILED_RENDER_FRAMES = 32, 64
+# The tiers phase: the checked frame (the yawed frame kernels_vs_plain also
+# checks), the CLI runs' frames, and each tier's flags and render_clip
+# arguments.
+TIER_FRAME, TIER_CLI_FRAMES = 74, 32
+TIERS = {"quality": (["--quality"], {"quality": True}),
+         "patch": (["--patch", "--colfix", "3"], {"patch": True, "colfix": 3})}
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # The control's strips at 1080p/d10, as bench.py renders it; a "flip" is a
@@ -179,21 +199,31 @@ def build_all():
         return {k: f.result() for k, f in futures.items()}
 
 
-def scan_bounds(prep, i, g, cfg, texq):
-    """Bytes and operations of the three scan kernels on frame i."""
-    rec = g.nbands * cfg.nbr * cfg.nrec * 8 * g.cl * 4
-    attrs = 4 * g.hpad * g.wl * 4
+def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False):
+    """Bytes and operations of the three scan kernels on frame i; with a
+    band flag (sparse bands) the records, the window and the attributes
+    read count only the flagged bands' share. The attributes are 4 planes;
+    ``with_z`` (the tiers' passes): the march also writes the raster-z
+    plane, and the shade reads it and writes the raster z."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    share = 1.0 if bflag is None else float(bflag.float().mean())
+    rec = g.nbands * cfg.nbr * cfg.nrec * 8 * g.cl * 4 * share
+    attrs = rs.n_attrs(with_z) * g.hpad * g.wl * 4
     ints = nbytes(prep.w0[i], prep.bounds[i])
-    solve = (nbytes(prep.win[i]) + ints + rec,
-             2 * 8 * 128 * g.nchunks * g.nbands)
+    win = nbytes(prep.win[i]) * share
+    solve = (win + ints + rec, 2 * 8 * 128 * g.nchunks * g.nbands * share)
     # The march sweeps, per pixel, the slot-0 record columns of its block's
     # march window (128 narrow, cw wide, none when skipped): two comparisons
     # each. The exact tests and colfix come on top, uncounted.
     mid = prep.mid[i].long()
     cols = torch.where(mid >= 0, 128, torch.where(mid == -1, cfg.cw, 0))
-    march = (rec + nbytes(prep.win[i], prep.canch[i], prep.mid[i]) + ints
-             + attrs, 2 * 1024 * int(cols.sum()))
-    shade = (attrs + nbytes(texq) + g.hpad * g.wl * 4, 0)
+    if bflag is not None:
+        cols = cols.reshape(g.nbands, g.nblk) * bflag.long()[:, None]
+    march = (rec + win + nbytes(prep.canch[i], prep.mid[i]) + ints + attrs,
+             2 * 1024 * int(cols.sum()))
+    shade = (attrs * share + nbytes(texq)
+             + g.hpad * g.wl * 4 * (2 if with_z else 1), 0)
     return {"solve": solve, "march": march, "shade": shade}
 
 
@@ -485,14 +515,23 @@ def tiled_main_path(colour, depth, scene, cfg, group, tmp):
     return launches
 
 
+def control_fidelity(frame, control):
+    """PSNR, > 1 LSB share and > 8 LSB share (bench.py's flips) of a
+    (H, W, 4) uint8 frame against the control."""
+    from depthrenderer_tpu_torch.utils import psnr
+
+    diff = np.abs(frame.astype(np.int32) - control.astype(np.int32)).max(-1)
+    return psnr(frame, control), float((diff > 1).mean()), float(
+        (diff > 8).mean())
+
+
 def control_phase(scene, tiled_cfg, dev):
     """Phase 6: the lossless control at sway frame 0 against the scan and
-    tiled frames."""
+    tiled frames -> (control frame, the scan's fidelity)."""
     from depthrenderer_tpu_torch.ops import raster_grid as trg
     from depthrenderer_tpu_torch.ops import raster_pallas as trp
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.render import clip_mvps
-    from depthrenderer_tpu_torch.utils import psnr
 
     mesh, projection, vgrid, uvgrid, texture = scene
     n = vgrid.shape[0]
@@ -511,12 +550,12 @@ def control_phase(scene, tiled_cfg, dev):
     scan = rs.unpack_raw_frames(raw.cpu(), WIDTH, HEIGHT)[0]
     tiled = trp.render_frames_pallas(mvps.to(dev), vgrid, uvgrid, texture,
                                      WIDTH, HEIGHT, tiled_cfg)[0].cpu().numpy()
-    fields = {}
+    fields, fid = {}, {}
     for name, frame in (("scan", scan), ("tiled", tiled)):
-        diff = np.abs(frame.astype(np.int32) - control.astype(np.int32)).max(-1)
-        fields[f"{name}_psnr_db"] = f"{psnr(frame, control):.2f}"
-        fields[f"{name}_off_more_share"] = f"{float((diff > 1).mean()):.6f}"
-        fields[f"{name}_flip_share"] = f"{float((diff > 8).mean()):.6f}"
+        fid[name] = control_fidelity(frame, control)
+        fields[f"{name}_psnr_db"] = f"{fid[name][0]:.2f}"
+        fields[f"{name}_off_more_share"] = f"{fid[name][1]:.6f}"
+        fields[f"{name}_flip_share"] = f"{fid[name][2]:.6f}"
     cfg = stats["config"]
     covered = float((control[..., :3].max(-1) > 0).mean())
     if not 0.3 < covered <= 1.0:
@@ -525,6 +564,187 @@ def control_phase(scene, tiled_cfg, dev):
           window=f"{cfg.window_rows}x{cfg.window_cols}",
           strips=stats["strips"], seconds=f"{seconds:.2f}",
           peak_gib=f"{peak:.2f}", covered_share=f"{covered:.4f}", **fields)
+    return control, fid["scan"]
+
+
+def timed_ms(fn):
+    """(fn(), wall milliseconds), the device synchronised around it."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def tier_pass(label, cfg, mvp, vgrid, texture, width, height, dev,
+              gates=None):
+    """One pass of a tier on one frame, each kernel against its plain twin
+    -> (kernel (packed, z), plain-chain (packed, z), phase fields).
+
+    The twins run on the kernels' inputs (the march twin on the kernel's
+    records, the shade twin on the kernel's attrs); the plain chain's frame
+    shades the march twin's attrs. ``gates`` (bflag, blkflag) makes the pass
+    sparse."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    g = rs.ScanGeometry.of(width, height, vgrid.shape[0], vgrid.shape[1],
+                           cfg)
+    minv = rs.minv_rows(mvp)
+    prep = rs.prep_scan(mvp.to(dev), vgrid, width, height, cfg)
+    texq = rs.pack_texture(texture)
+    bflag = None
+    if gates is not None:
+        bounds, mid = rs.apply_patch_gates(prep.bounds, prep.mid, prep.canch,
+                                           gates[1], min(cfg.cw + 128, g.cl),
+                                           g.cl)
+        prep = prep._replace(bounds=bounds, mid=mid)
+        bflag = gates[0][0].contiguous()
+    args = (prep.win[0], prep.w0[0], prep.bounds[0])
+    rec = rs.solve_records(*args, g, cfg, bflag)
+    rec_p, solve_plain = timed_ms(
+        lambda: rs.solve_records_plain(*args, g, cfg, bflag))
+    rows = slice(None) if bflag is None else bflag.bool()
+    if not torch.equal(rec[rows], rec_p[rows]):
+        bad = int((rec[rows] != rec_p[rows]).sum())
+        raise AssertionError(f"{label}: {bad} record values differ between "
+                             "the solve kernel and its twin")
+    del rec_p
+    margs = (prep.win[0], prep.w0[0], prep.bounds[0], prep.canch[0],
+             prep.mid[0], minv[0], g, cfg, bflag)
+    att = rs.march_exact(rec, *margs, raster_z=True)
+    att_p, march_plain = timed_ms(
+        lambda: rs.march_exact_plain(rec, *margs, raster_z=True))
+    march_err = float((att - att_p).abs().max())
+    if march_err != 0.0:
+        raise AssertionError(f"{label}: march attrs differ from the twin's "
+                             f"by {march_err}")
+    out = rs.shade(att, texq, g, cfg, "texture_z", bflag)
+    sh_p, shade_plain = timed_ms(lambda: rs.shade_plain(
+        att, texq, *texq.shape, "texture_z", bflag))
+    if not (torch.equal(out[0], sh_p[0]) and torch.equal(out[1], sh_p[1])):
+        raise AssertionError(f"{label}: shade outputs differ from the twin's")
+    chain_p = rs.shade_plain(att_p, texq, *texq.shape, "texture_z", bflag)
+    _, same, more = frame_agreement(out[0], chain_p[0])
+    z_same = float((out[1] == chain_p[1]).float().mean())
+    if same < 0.999 or more > 0.001 * out[0].numel() or z_same < 0.999:
+        raise AssertionError(f"{label}: kernel chain against plain chain: "
+                             f"{same:.6f} identical, {more} > 1 LSB, "
+                             f"raster z {z_same:.6f} equal")
+    ms = {"solve": cuda_ms(lambda: rs.solve_records(*args, g, cfg, bflag),
+                           10),
+          "march": cuda_ms(lambda: rs.march_exact(rec, *margs,
+                                                  raster_z=True), 10),
+          "shade": cuda_ms(lambda: rs.shade(att, texq, g, cfg, "texture_z",
+                                            bflag), 20)}
+    plain = {"solve": solve_plain, "march": march_plain,
+             "shade": shade_plain}
+    bounds = {k: bound(*v) for k, v in scan_bounds(
+        prep, 0, g, cfg, texq, bflag, with_z=True).items()}
+    fields = {"cfg": f"sr{cfg.sr}/hyps{cfg.hyps}/colfix{cfg.colfix}/"
+                     f"cw{cfg.cw}/dual{int(cfg.dual_col)}",
+              "identical_share": f"{same:.6f}",
+              "z_equal_share": f"{z_same:.6f}",
+              **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+              **{f"{k}_plain_ms": f"{v:.1f}" for k, v in plain.items()},
+              **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()}}
+    if bflag is not None:
+        fields["bands"] = f"{int(bflag.sum())}/{g.nbands}"
+        fields["blocks_live"] = int((prep.mid[0] != -2).sum())
+    return out, chain_p, fields
+
+
+def tier_kernels(name, scene, dev):
+    """The tiers phase's kernel checks of one tier on sway frame 74."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps
+
+    mesh, projection, vgrid, _, texture = scene
+    n = vgrid.shape[0]
+    cfg = rs.suggest_scan_config(n, WIDTH, HEIGHT, **TIERS[name][1])
+    cfg1, cfg2 = rs.tier_configs(cfg, n, n, WIDTH, HEIGHT)
+    mvp = clip_mvps(projection, clip_views(300)[TIER_FRAME:TIER_FRAME + 1],
+                    mesh.transform)
+    vgrid_t = vgrid.transpose(0, 1).contiguous()
+    tex_t = texture.transpose(0, 1).contiguous()
+    (k1, p1, f1) = tier_pass(f"{name} pass 1", cfg1, mvp, vgrid, texture,
+                             WIDTH, HEIGHT, dev)
+    phase(f"tiers_{name}_pass1", frame=TIER_FRAME, **f1)
+    gates = None
+    if name == "patch":
+        g2 = rs.ScanGeometry.of(HEIGHT, WIDTH, n, n, cfg2)
+        gates = rs.patch_flags(k1[1][None], WIDTH, HEIGHT, g2.nbands,
+                               g2.nblk)
+        gates_p = rs.patch_flags(p1[1][None], WIDTH, HEIGHT, g2.nbands,
+                                 g2.nblk)
+        phase(f"tiers_{name}_flags",
+              flagged_bands=f"{int(gates[0].sum())}/{g2.nbands}",
+              flagged_blocks=f"{int(gates[1].sum())}/{g2.nbands * g2.nblk}",
+              equal_to_plain_chain=all(torch.equal(a, b) for a, b in
+                                       zip(gates, gates_p)))
+    (k2, p2, f2) = tier_pass(f"{name} pass 2", cfg2, rs.swap_mvps(mvp),
+                             vgrid_t, tex_t, HEIGHT, WIDTH, dev, gates)
+    phase(f"tiers_{name}_pass2", frame=TIER_FRAME, **f2)
+    merged_k = rs.merge_row_edge_raw(k1[0][None], k1[1][None], k2[0][None],
+                                     k2[1][None], WIDTH, HEIGHT)[0]
+    merged_p = rs.merge_row_edge_raw(p1[0][None], p1[1][None], p2[0][None],
+                                     p2[1][None], WIDTH, HEIGHT)[0]
+    _, same, more = frame_agreement(merged_k[:HEIGHT, :WIDTH],
+                                    merged_p[:HEIGHT, :WIDTH])
+    won = int((merged_k != k1[0]).sum())
+    phase(f"tiers_{name}_merged", identical_share=f"{same:.6f}",
+          off_more=more, pass2_pixels=won)
+    if same < 0.999 or more > 0.001 * HEIGHT * WIDTH:
+        raise AssertionError(f"{name}: merged kernel frame against the plain "
+                             f"chain: {same:.6f} identical, {more} > 1 LSB")
+
+
+def tier_cli(name, colour, depth, scene, control, scan_fid, tmp):
+    """The tiers phase's CLI run and fidelity of one tier -> its > 8 LSB
+    share against the control."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps
+
+    mesh, projection, vgrid, uvgrid, texture = scene
+    flags, kw = TIERS[name]
+    fps = render_fps(mesh, projection, TIER_CLI_FRAMES, 16, **kw)
+    rs.reset_launch_counts()
+    result = cli.render_scene(colour, depth, cli_args(
+        tmp / name, TIER_CLI_FRAMES, flags))
+    launches = dict(rs.LAUNCHES)
+    want = 2 * TIER_CLI_FRAMES
+    if launches != {"solve": want, "march": want, "shade": want}:
+        raise AssertionError(f"{name}: launches {launches} on the CLI run, "
+                             f"expected {want} each")
+    avi, png = check_outputs(result, TIER_CLI_FRAMES)
+    cfg = rs.suggest_scan_config(vgrid.shape[0], WIDTH, HEIGHT, **kw)
+    mvps = clip_mvps(projection, clip_views(1), mesh.transform)
+    raw, _ = rs.render_frames_scan(mvps, vgrid, uvgrid, texture, WIDTH,
+                                   HEIGHT, cfg)
+    frame = rs.unpack_raw_frames(raw.cpu(), WIDTH, HEIGHT)[0]
+    fid = control_fidelity(frame, control)
+    phase(f"tiers_{name}_path", frames=TIER_CLI_FRAMES,
+          launches=json.dumps(launches), render_only_fps=f"{fps:.2f}",
+          incl_encode_fps=f"{TIER_CLI_FRAMES / result['seconds']:.2f}",
+          avi_bytes=avi, sample_png_bytes=png,
+          psnr_db=f"{fid[0]:.2f}", off_more_share=f"{fid[1]:.6f}",
+          flip_share=f"{fid[2]:.6f}",
+          scan_psnr_db=f"{scan_fid[0]:.2f}",
+          scan_flip_share=f"{scan_fid[2]:.6f}")
+    return fid[2]
+
+
+def tiers_phase(colour, depth, scene, control, scan_fid, dev, tmp):
+    """Phase 7: the fidelity tiers."""
+    flips = {}
+    for name in TIERS:
+        tier_kernels(name, scene, dev)
+        flips[name] = tier_cli(name, colour, depth, scene, control, scan_fid,
+                               tmp)
+    if flips["quality"] > scan_fid[2]:
+        raise AssertionError(
+            f"the quality tier flips {flips['quality']:.6f} of the pixels "
+            f"against the control, the default scan {scan_fid[2]:.6f}")
 
 
 def main(argv=None):
@@ -577,8 +797,11 @@ def main(argv=None):
                                         group, tmp)
         seconds["tiled_path"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        control_phase(scene, tiled_cfg, dev)
+        control, scan_fid = control_phase(scene, tiled_cfg, dev)
         seconds["control"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tiers_phase(colour, depth, scene, control, scan_fid, dev, tmp)
+        seconds["tiers"] = time.perf_counter() - t0
     phase("seconds", **{k: f"{v:.1f}" for k, v in seconds.items()},
           total=f"{time.perf_counter() - t_all:.1f}")
 

@@ -10,7 +10,8 @@ Defaults as the reference (fps 60, density 8, displacement 4.0, fov_y 18,
 camera at dz=-10, 5-second composed sway, 3 loops, sample frame at frame 10,
 ``<image name>.avi``). Frames render on the GPU through the scan kernels by
 default, or through the tiled rasteriser's pair kernel with ``--impl pallas``
-or ``--impl grid``; ``--device cpu`` runs the plain PyTorch passes.
+or ``--impl grid``; ``--device cpu`` runs the plain PyTorch passes. The
+scan's fidelity tiers: ``--quality``, and ``--patch --colfix 3`` (balanced).
 
 Options of the JAX CLI that this port does not implement yet raise
 ``NotImplementedError`` naming the ROADMAP item (see :func:`check_ported`).
@@ -93,13 +94,21 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
                         "(pair kernel); grid = the tiled route in the grid "
                         "path's triangle order.")
     p.add_argument("--quality", action="store_true",
-                   help="The quality tier (not ported yet).")
+                   help="The scan's quality tier: dual-column records, "
+                        "colfix 3 and a full second pass over the "
+                        "transposed problem, merged by depth; the slowest "
+                        "and most faithful scan. Exclusive with --patch.")
     p.add_argument("--patch", action="store_true",
-                   help="The sparse patch tier (not ported yet).")
+                   help="The scan's patch tier: the transposed second pass "
+                        "runs only on the bands and blocks where the first "
+                        "left coverage holes. With '--colfix 3' this is the "
+                        "balanced tier between the default and --quality.")
     p.add_argument("--colfix", default="auto",
                    choices=("auto", "none", "0", "1", "2", "3"),
-                   help="Colfix fan half-width: auto (= 1), none or 1 "
-                        "(0, 2 and 3 are not ported yet).")
+                   help="The scan's column-fan hole fill: its half-width "
+                        "0-3 (at 2 and 3 the +-1 fan runs first and the "
+                        "wider cells only where holes remain), none to turn "
+                        "it off; auto = 1, or 3 under --quality.")
     p.add_argument("--no-video", action="store_true",
                    help="Skip video output (write only the sample frame).")
     p.add_argument("--png-every", type=int, default=None, dest="png_every",
@@ -120,10 +129,6 @@ def check_ported(args):
     where = "ROADMAP.md queue 1"
     unported = []
     scan = args.impl in ("auto", "scan")
-    if args.quality:
-        unported.append(f"--quality ({where} 'fidelity tiers')")
-    if args.patch:
-        unported.append(f"--patch ({where} 'fidelity tiers')")
     if scan and args.edge_cull is not None:
         unported.append(f"--edge-cull on the scan ({where} 'd11/d12 and "
                         "edge culling'; --impl pallas|grid cull)")
@@ -134,8 +139,6 @@ def check_ported(args):
         unported.append(f"--container mp4 ({where} 'MP4 output')")
     if args.overlay_noise:
         unported.append(f"--overlay-noise ({where} 'Perlin overlay')")
-    if args.colfix not in ("auto", "none", "1"):
-        unported.append(f"--colfix {args.colfix} ({where} 'fidelity tiers')")
     if unported:
         raise NotImplementedError("not ported yet: " + "; ".join(unported))
 
@@ -158,8 +161,8 @@ def render_scene(colour, depth, args):
     if args.impl in ("auto", "scan") and mesh.grid_density >= 11:
         raise NotImplementedError(
             f"-mesh-density {mesh.grid_density} needs the big_grid scan "
-            "variant (ROADMAP.md queue 1, 'scan variants'); --impl pallas "
-            "renders it through the tiled route")
+            "variant (ROADMAP.md queue 1 item 5, 'd11/d12 and edge "
+            "culling'); --impl pallas renders it through the tiled route")
 
     height, width = colour.shape[:2]
     out_w = args.width or width
@@ -205,14 +208,16 @@ def render_scene(colour, depth, args):
     log(f"Rendering {num_frames} frames at {out_w}x{out_h} on {device} "
         f"(mesh density {args.mesh_density}, {mesh.num_triangles:,d} "
         f"triangles)...")
-    colfix = {"auto": "auto", "none": None, "1": 1}[args.colfix]
+    colfix = ({"auto": "auto", "none": None}[args.colfix]
+              if args.colfix in ("auto", "none") else int(args.colfix))
     t0 = time.perf_counter()
     try:
         render_clip(mesh, camera.projection, views, out_w, out_h,
                     mode=args.mode, frame_batch=args.frame_batch,
                     on_frames=on_frames, colfix=colfix, device=device,
                     impl=args.impl, binning_quantile=args.binning_quantile,
-                    edge_cull_threshold=args.edge_cull)
+                    edge_cull_threshold=args.edge_cull,
+                    quality=args.quality, patch=args.patch)
     finally:
         if video_writer is not None:
             video_writer.cleanup()

@@ -4,10 +4,17 @@
 // (one Pallas launch per frame group: solve + strip capture, march + exact
 // tests, colfix hole fill, bilinear shade) with three launches per frame:
 //
-//   solve_kernel  <- the kernel's solve phase (solve_chunk, _solve_phase)
+//   solve_kernel  <- the kernel's solve phase (solve_chunk, _solve_phase),
+//                    with the dual-column capture (dual_col)
 //   march_kernel  <- march_block, _exact_record, _exact_cells, _cell_fold and
-//                    the colfix fan (fix_slot)
-//   shade_kernel  <- the attrs capture and shade_block
+//                    the colfix fan cascade (fix_slot, K = 0..3)
+//   shade_kernel  <- the attrs capture and shade_block, with the raster-z
+//                    output of the texture_z mode
+//
+// A per-band flag array (``bflag``, may be null) gives the sparse bands of
+// the patch tier: every launch skips an unflagged band band-uniformly; its
+// pixels shade packed 0 with raster z FAR, and its records are never written
+// or read.
 //
 // Nothing carries from one TPU grid step to the next, so splitting is free;
 // records go through device memory between solve and march. Each launch has a
@@ -28,15 +35,17 @@
 // What bounds it on an H100, and what the design does about it: every pass
 // is gathers and divergent per-thread loops, not FLOPs.
 //  * solve walks a column's scan rows [kb, ke) (coalesced across the 128
-//    threads of a row) and writes 3 + 3*sr record planes per slot: bound by
-//    record stores (~200 MB per 1080p/d10 frame). Records are written once,
+//    threads of a row) and writes 3 + 3*sr record planes per slot (3 + 6*sr
+//    with dual_col): bound by record stores (~200 MB per 1080p/d10 frame at
+//    the default sr = 6). Records are written once,
 //    at the crossing, straight from the window (no ring buffer).
 //  * march sweeps cw record columns per slot (the 128 threads of a row read
 //    the same addresses: broadcasts from L1) and then gathers 2 x 3 x sr strip
 //    values per hypothesis: bound by L1/L2 gather latency and by the register
 //    cap that 1024-thread blocks impose (64 per thread; the rest spills).
 //    Strip rows are read as the cell loop needs them instead of staged.
-//  * colfix loops over a block-uniform row range, 4 fan columns per row.
+//  * colfix loops over a block-uniform row range, 2 to 6 fan columns per
+//    row (the K = 3 outer fan carries 6 corner columns in registers).
 //  * shade is four texel gathers per pixel.
 // Staging the band window and records in shared memory (or TMA) is later
 // work; this version is the simple, exact one.
@@ -54,9 +63,13 @@ constexpr float kIdNone = 2.0e30f;       // winner id of an uncovered pixel
 }  // namespace
 
 // Mirror of ops/raster_scan.py::_Params (field order and types must match).
+// mode: 0 texture, 1 debug_z, 2 texture_z; dual: records carry the right
+// column's corners (dual_col); raster_z: the march writes a fifth attrs
+// plane, the raster z (read by the texture_z shade and the attrs merge).
 struct ScanParams {
   int width, height, n_r, n_c, cl, rpad, wl, hpad, nbands, nchunks, nblk;
-  int rmax, cw, cwf, sr, off, nbr, hyps, dmax, colfix, ht, wt, mode;
+  int rmax, cw, cwf, sr, off, nbr, hyps, dmax, colfix, ht, wt, mode, dual;
+  int raster_z;
   float sxw, syw, inv_ncm1, inv_nrm1;
   float m2[4], m3[4];
 };
@@ -76,11 +89,17 @@ __device__ __forceinline__ float fclamp(float x, float lo, float hi) {
 
 __global__ void __launch_bounds__(1024)
 solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
-             const int* __restrict__ bounds, float* __restrict__ rec,
-             ScanParams p) {
+             const int* __restrict__ bounds, const int* __restrict__ bflag,
+             float* __restrict__ rec, ScanParams p) {
   const int chunk = blockIdx.x, band = blockIdx.y;
+  if (bflag != nullptr && bflag[band] == 0) return;  // sparse band
   const int y = threadIdx.y;
   const int c = chunk * 128 + threadIdx.x;
+  // The right column of dual-column strips: c + 1, and for the table's last
+  // column the last chunk's first (the reference's lane roll within its last
+  // chunk; the march masks that column).
+  const int cr = c + 1 < p.cl ? c + 1 : p.cl - 128;
+  const int pr = p.dual ? 6 : 3;  // record planes per strip row
   const int bnd = bounds[band * p.nchunks + chunk];
   const int kb = bnd & 0xFFF, ke = (bnd >> 12) & 0xFFF;
   const int multi = (bnd >> 24) & 1;
@@ -91,7 +110,7 @@ solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
   const float* wy = win + plane;
   const float* wz = win + 2 * plane;
   const int base = w0[band] * 8;  // padded grid row of window row 0
-  const int nrec = 3 + 3 * p.sr;
+  const int nrec = 3 + pr * p.sr;
   const size_t pstride = (size_t)8 * p.cl;
   float* out = rec + (size_t)band * p.nbr * nrec * pstride + (size_t)y * p.cl
                + c;
@@ -110,11 +129,16 @@ solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
       // Strip rows k-off .. k-off+sr-1; rows above the window read 0.
       for (int sj = 0; sj < p.sr; ++sj) {
         const int r = k - p.off + sj;
-        const size_t ri = (size_t)(base + imax(r, 0)) * p.cl + c;
-        float* os = o + (size_t)(3 + 3 * sj) * pstride;
-        os[0] = r >= 0 ? wx[ri] : 0.0f;
-        os[pstride] = r >= 0 ? wy[ri] : 0.0f;
-        os[2 * pstride] = r >= 0 ? wz[ri] : 0.0f;
+        const size_t ri = (size_t)(base + imax(r, 0)) * p.cl;
+        float* os = o + (size_t)(3 + pr * sj) * pstride;
+        os[0] = r >= 0 ? wx[ri + c] : 0.0f;
+        os[pstride] = r >= 0 ? wy[ri + c] : 0.0f;
+        os[2 * pstride] = r >= 0 ? wz[ri + c] : 0.0f;
+        if (p.dual) {
+          os[3 * pstride] = r >= 0 ? wx[ri + cr] : 0.0f;
+          os[4 * pstride] = r >= 0 ? wy[ri + cr] : 0.0f;
+          os[5 * pstride] = r >= 0 ? wz[ri + cr] : 0.0f;
+        }
       }
       ++cnt;
     }
@@ -129,7 +153,8 @@ solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
 }
 
 // ---------------------------------------------------------------------------
-// march + exact tests + colfix: attrs (4, hpad, wl) for one frame
+// march + exact tests + colfix: attrs (4, hpad, wl) for one frame: u, v,
+// model z, coverage; with raster_z also the raster z (5, hpad, wl)
 // ---------------------------------------------------------------------------
 
 struct Best {
@@ -229,17 +254,20 @@ __device__ void sweep(const float* sxr, const float* zcr, int lo, int L,
 }
 
 // Exact tests of the record picked by march hypothesis h (a march-window
-// column) and its right neighbour, realigned by the bracket-row delta.
-// ``slot`` points at the slot's planes at the pixel's scanline.
+// column) and its right neighbour: with dual_col the right column's corners
+// stored in the same record, else the neighbour record realigned by the
+// bracket-row delta. ``slot`` points at the slot's planes at the pixel's
+// scanline.
 __device__ void exact_record(const ScanParams& p, Best& b, const float* slot,
                              float h, int canch_f, int off_f, float w0f,
                              float qx, float qy) {
   const size_t ps = (size_t)8 * p.cl;  // record plane stride
+  const int pr = p.dual ? 6 : 3;       // record planes per strip row
   const int j1 = (int)fclamp(h, 0.0f, (float)(p.cw - 1)) + off_f;
   const int c1 = canch_f * 128 + iclamp(j1, 0, p.cwf - 1);
   const int c2 = canch_f * 128 + iclamp(j1 + 1, 0, p.cwf - 1);
   const float bw1 = slot[2 * ps + c1];
-  const float bw2 = slot[2 * ps + c2];
+  const float bw2 = p.dual ? bw1 : slot[2 * ps + c2];
   const float d = bw2 - bw1;
   // aligned2[k] = strip2[k - d] for |d| <= dmax, else NaN.
   const bool shift_ok = fabsf(d) <= (float)p.dmax;
@@ -252,12 +280,19 @@ __device__ void exact_record(const ScanParams& p, Best& b, const float* slot,
   const bool col_ok = (bw1 > kNoBase) && (cg <= (float)(p.n_c - 2));
 
   auto strip1 = [&](int k, float& x, float& y, float& z) {
-    const float* s = slot + (size_t)(3 + 3 * k) * ps;
+    const float* s = slot + (size_t)(3 + pr * k) * ps;
     x = s[c1];
     y = s[ps + c1];
     z = s[2 * ps + c1];
   };
   auto strip2 = [&](int k, float& x, float& y, float& z) {
+    if (p.dual) {  // the record's own right-column corners
+      const float* s = slot + (size_t)(3 + pr * k + 3) * ps;
+      x = s[c1];
+      y = s[ps + c1];
+      z = s[2 * ps + c1];
+      return;
+    }
     const int src = k - di;
     if (shift_ok && src >= 0 && src < p.sr) {
       const float* s = slot + (size_t)(3 + 3 * src) * ps;
@@ -302,22 +337,25 @@ __device__ void exact_record(const ScanParams& p, Best& b, const float* slot,
   }
 }
 
-// The colfix fan (K=1) for one slot (block-uniform call): re-test every
-// scanned window row over the cells j0-1, j0, j0+1 around the slot's top-1
-// column j0 (fan corner columns j0-1 .. j0+2).
+// One colfix fan call for one slot (block-uniform call): re-test every
+// scanned window row over the fan's cells around the slot's top-1 column j0.
+// The corner columns are j0 + offs[cc]; cells lie between consecutive offsets
+// only (the K >= 2 outer fan has a gap where the inner fan's cells were).
+template <int NF>
 __device__ void colfix_slot(const ScanParams& p, Best& b,
                             const float* __restrict__ win,
                             const int* __restrict__ bounds, int band,
                             int canch_f, int off_f, int wbase, float w0f,
-                            float h1, float m1, float qx, float qy) {
+                            float h1, float m1, float qx, float qy,
+                            const int (&offs)[NF]) {
   const bool hitok = m1 < kHalfFar;
   const int j0 = (int)fclamp(h1, 0.0f, (float)(p.cw - 1)) + off_f;
-  int col[4];
-  bool colok[4];
-  float cg[4];
+  int col[NF];
+  bool colok[NF];
+  float cg[NF];
 #pragma unroll
-  for (int cc = 0; cc < 4; ++cc) {
-    const int ix = j0 - 1 + cc;
+  for (int cc = 0; cc < NF; ++cc) {
+    const int ix = j0 + offs[cc];
     colok[cc] = hitok && ix >= 0 && ix <= p.cwf - 1;
     col[cc] = canch_f * 128 + iclamp(ix, 0, p.cwf - 1);
     cg[cc] = (float)col[cc];
@@ -329,7 +367,7 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
   for (int tt = 0; tt < nsub; ++tt) {
     bool mine = false;
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc)
+    for (int cc = 0; cc < NF; ++cc)
       mine = mine || (colok[cc] && (col[cc] - canch_f * 128) / 128 == tt);
     if (__syncthreads_or(mine)) {
       const int bt = bounds[band * p.nchunks + canch_f + tt];
@@ -345,12 +383,14 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
   const int k_hi = imin((ke_u + 8) / 8, nrow_blocks) * 8;
   const size_t plane = (size_t)p.rpad * p.cl;
 
-  float tx[4], ty[4], tz[4], ti[4];  // the current row's fan corners
-  float prev_bottom[3] = {0.0f, 0.0f, 0.0f};
+  float tx[NF], ty[NF], tz[NF], ti[NF];  // the current row's fan corners
+  float prev_bottom[NF];                 // per cell f (between f and f + 1)
+#pragma unroll
+  for (int f = 0; f < NF; ++f) prev_bottom[f] = 0.0f;
   if (k_lo < k_hi) {
     const size_t r = (size_t)(wbase + k_lo) * p.cl;
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int cc = 0; cc < NF; ++cc) {
       tx[cc] = win[r + col[cc]];
       ty[cc] = win[plane + r + col[cc]];
       tz[cc] = win[2 * plane + r + col[cc]];
@@ -362,9 +402,9 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
     // (the reference's clamped block load; such rows are masked).
     const int kn = k + 1 >= p.rmax ? p.rmax - 8 : k + 1;
     const size_t r = (size_t)(wbase + kn) * p.cl;
-    float bx[4], by[4], bz[4], bi[4], lines[4];
+    float bx[NF], by[NF], bz[NF], bi[NF], lines[NF];
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int cc = 0; cc < NF; ++cc) {
       bx[cc] = win[r + col[cc]];
       by[cc] = win[plane + r + col[cc]];
       bz[cc] = win[2 * plane + r + col[cc]];
@@ -377,7 +417,8 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
     const float v_top = 1.0f - r_cell * p.inv_nrm1;
     const float v_bot = 1.0f - (r_cell + 1.0f) * p.inv_nrm1;
 #pragma unroll
-    for (int f = 0; f < 3; ++f) {
+    for (int f = 0; f + 1 < NF; ++f) {
+      if (offs[f + 1] != offs[f] + 1) continue;  // the outer fan's gap
       const bool cell_ok = row_ok && colok[f] && colok[f + 1] &&
                            cg[f] <= (float)(p.n_c - 2);
       const float u0 = cg[f] * p.inv_ncm1;
@@ -397,7 +438,7 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
                 p.inv_ncm1, p.inv_nrm1);
     }
 #pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
+    for (int cc = 0; cc < NF; ++cc) {
       tx[cc] = bx[cc];
       ty[cc] = by[cc];
       tz[cc] = bz[cc];
@@ -406,22 +447,48 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
   }
 }
 
+// One fan call over every slot, each gated on the block still holding an
+// uncovered pixel with a real marched bracket in that slot.
+template <int NF>
+__device__ void colfix_pass(const ScanParams& p, Best& b,
+                            const float* __restrict__ win,
+                            const int* __restrict__ bounds, int band,
+                            int canch_f, int off_f, int wbase, float w0f,
+                            const float* fix_h, const float* fix_m, float qx,
+                            float qy, const int (&offs)[NF]) {
+  for (int s = 0; s < p.nbr; ++s) {
+    if (__syncthreads_or(b.id >= 1.0e30f && fix_m[s] < kHalfFar))
+      colfix_slot<NF>(p, b, win, bounds, band, canch_f, off_f, wbase, w0f,
+                      fix_h[s], fix_m[s], qx, qy, offs);
+  }
+}
+
 __global__ void __launch_bounds__(1024, 1)
 march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
              const int* __restrict__ w0, const int* __restrict__ bounds,
              const int* __restrict__ canch, const int* __restrict__ mid,
-             float* __restrict__ attrs, ScanParams p) {
+             const int* __restrict__ bflag, float* __restrict__ attrs,
+             ScanParams p) {
   const int blk = blockIdx.x, band = blockIdx.y;
   const int x = threadIdx.x, y = threadIdx.y;
+  const size_t o = (size_t)(band * 8 + y) * p.wl + blk * 128 + x;
+  const size_t ap = (size_t)p.hpad * p.wl;
+  if (bflag != nullptr && bflag[band] == 0) {  // sparse band: uncovered
+    for (int a = 0; a < 4; ++a) attrs[a * ap + o] = 0.0f;
+    if (p.raster_z) attrs[4 * ap + o] = kFar;
+    return;
+  }
   const float qx = ((float)(blk * 128) + (float)x) + 0.5f;
   const float qy = ((float)p.height - (float)(band * 8 + y)) - 0.5f;
   const int canch_m = canch[blk] * 8;
   const int canch_f = canch_m / 128;
   const int off_f = canch_m - canch_f * 128;
-  const int midv = p.cw <= 128 ? -1 : mid[band * p.nblk + blk];
+  // -1 (wide) everywhere when cw <= 128, unless the patch pass's block gate
+  // set -2 (skip).
+  const int midv = mid[band * p.nblk + blk];
   const int wbase = w0[band] * 8;
   const float w0f = (float)wbase;
-  const int nrec = 3 + 3 * p.sr;
+  const int nrec = 3 + (p.dual ? 6 : 3) * p.sr;
   const size_t ps = (size_t)8 * p.cl;
   const bool need2 = p.hyps == 2;
 
@@ -434,19 +501,21 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
         rec + ((size_t)band * p.nbr + s) * nrec * ps + (size_t)y * p.cl;
     const float* sxr = slot;       // crossing x
     const float* zcr = slot + ps;  // crossing z
+    fix_h[s] = (float)p.cw;
+    fix_m[s] = kFar;
+    if (midv == -2) continue;  // block-uniform: no candidates, or gated
     // Slot gate: any record in the block's march window (its narrow window
     // when the block marches narrow), over all 8 rows.
     bool mine = false;
-    for (int c = x; c < p.cw; c += 128) mine = mine || zcr[canch_m + c] < kHalfFar;
+    for (int c = x; c < p.cw; c += 128)
+      mine = mine || zcr[canch_m + c] < kHalfFar;
     bool any_rec = __syncthreads_or(mine);
     const int lo_n = canch_m + imax(midv, 0) * 8;
     if (p.cw > 128) {
       const bool any_nar = __syncthreads_or(zcr[lo_n + x] < kHalfFar);
       if (midv >= 0) any_rec = any_nar;
     }
-    fix_h[s] = (float)p.cw;
-    fix_m[s] = kFar;
-    if (!(any_rec && midv != -2)) continue;  // block-uniform
+    if (!any_rec) continue;  // block-uniform
 
     const bool narrow = p.cw > 128 && midv >= 0;
     int o1, cnt, o2;
@@ -463,11 +532,24 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
     fix_m[s] = m1;
   }
 
-  if (p.colfix >= 0) {
-    for (int s = 0; s < p.nbr; ++s) {
-      if (__syncthreads_or(b.id >= 1.0e30f && fix_m[s] < kHalfFar))
-        colfix_slot(p, b, win, bounds, band, canch_f, off_f, wbase, w0f,
-                    fix_h[s], fix_m[s], qx, qy);
+  // The colfix cascade: the inner fan (K = 0: the one cell j0; K >= 1:
+  // cells j0-1 .. j0+1), then at K >= 2 the outer cells where holes remain.
+  if (p.colfix == 0) {
+    const int inner0[2] = {0, 1};
+    colfix_pass<2>(p, b, win, bounds, band, canch_f, off_f, wbase, w0f, fix_h,
+                   fix_m, qx, qy, inner0);
+  } else if (p.colfix > 0) {
+    const int inner[4] = {-1, 0, 1, 2};
+    colfix_pass<4>(p, b, win, bounds, band, canch_f, off_f, wbase, w0f, fix_h,
+                   fix_m, qx, qy, inner);
+    if (p.colfix == 2) {
+      const int outer2[4] = {-2, -1, 2, 3};
+      colfix_pass<4>(p, b, win, bounds, band, canch_f, off_f, wbase, w0f,
+                     fix_h, fix_m, qx, qy, outer2);
+    } else if (p.colfix == 3) {
+      const int outer3[6] = {-3, -2, -1, 2, 3, 4};
+      colfix_pass<6>(p, b, win, bounds, band, canch_f, off_f, wbase, w0f,
+                     fix_h, fix_m, qx, qy, outer3);
     }
   }
 
@@ -481,24 +563,31 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
   const float num =
       (((p.m2[0] * ndcx + p.m2[1] * ndcy) + p.m2[2] * bz) + p.m2[3]) * b.ar;
   const float zm = cov ? num / den : 0.0f;
-  const size_t o = (size_t)(band * 8 + y) * p.wl + blk * 128 + x;
-  const size_t ap = (size_t)p.hpad * p.wl;
   attrs[o] = u;
   attrs[ap + o] = v;
   attrs[2 * ap + o] = zm;
   attrs[3 * ap + o] = cov ? 1.0f : 0.0f;
+  if (p.raster_z) attrs[4 * ap + o] = bz;
 }
 
 // ---------------------------------------------------------------------------
-// shade: packed RGBA (hpad, wl) from attrs and the packed texture
+// shade: packed RGBA (hpad, wl) from attrs and the packed texture; in the
+// texture_z mode also the raster z (hpad, wl)
 // ---------------------------------------------------------------------------
 
 __global__ void shade_kernel(const float* __restrict__ attrs,
                              const uint32_t* __restrict__ tex,
-                             uint32_t* __restrict__ out, ScanParams p) {
+                             const int* __restrict__ bflag,
+                             uint32_t* __restrict__ out,
+                             float* __restrict__ outz, ScanParams p) {
   const size_t n = (size_t)p.hpad * p.wl;
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  if (bflag != nullptr && bflag[i / p.wl / 8] == 0) {  // sparse band
+    out[i] = 0u;
+    outz[i] = kFar;
+    return;
+  }
   const float u = attrs[i], v = attrs[n + i], zm = attrs[2 * n + i];
   const bool cov = attrs[3 * n + i] > 0.5f;
   const float tx = fclamp(u * (float)p.wt - 0.5f, 0.0f, (float)p.wt - 1.0f);
@@ -535,11 +624,13 @@ __global__ void shade_kernel(const float* __restrict__ attrs,
     packed |= (uint32_t)fclamp(rintf(val), 0.0f, 255.0f) << (8 * k);
   }
   out[i] = packed;
+  if (p.mode == 2) outz[i] = cov ? attrs[4 * n + i] : kFar;  // texture_z
 }
 
 // ---------------------------------------------------------------------------
 // C entry points (ctypes): each launches on the given stream and returns
-// cudaGetLastError(); the caller allocates every buffer.
+// cudaGetLastError(); the caller allocates every buffer. ``bflag`` (one int
+// per band) and ``outz`` may be null.
 // ---------------------------------------------------------------------------
 
 extern "C" {
@@ -548,33 +639,36 @@ const char* scan_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
-int scan_solve(const void* win, const void* w0, const void* bounds, void* rec,
-               const ScanParams* p, void* stream) {
+int scan_solve(const void* win, const void* w0, const void* bounds,
+               const void* bflag, void* rec, const ScanParams* p,
+               void* stream) {
   dim3 grid(p->nchunks, p->nbands), block(128, 8);
   solve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float*)win, (const int*)w0, (const int*)bounds, (float*)rec, *p);
+      (const float*)win, (const int*)w0, (const int*)bounds,
+      (const int*)bflag, (float*)rec, *p);
   return (int)cudaGetLastError();
 }
 
 int scan_march(const void* rec, const void* win, const void* w0,
                const void* bounds, const void* canch, const void* mid,
-               void* attrs, const ScanParams* p, void* stream) {
+               const void* bflag, void* attrs, const ScanParams* p,
+               void* stream) {
   dim3 grid(p->nblk, p->nbands), block(128, 8);
   march_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)rec, (const float*)win, (const int*)w0,
-      (const int*)bounds, (const int*)canch, (const int*)mid, (float*)attrs,
-      *p);
+      (const int*)bounds, (const int*)canch, (const int*)mid,
+      (const int*)bflag, (float*)attrs, *p);
   return (int)cudaGetLastError();
 }
 
-int scan_shade(const void* attrs, const void* tex, void* out,
-               const ScanParams* p, void* stream) {
+int scan_shade(const void* attrs, const void* tex, const void* bflag,
+               void* out, void* outz, const ScanParams* p, void* stream) {
   const size_t n = (size_t)p->hpad * p->wl;
   const int threads = 256;
   shade_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                 (cudaStream_t)stream>>>((const float*)attrs,
-                                         (const uint32_t*)tex, (uint32_t*)out,
-                                         *p);
+                 (cudaStream_t)stream>>>(
+      (const float*)attrs, (const uint32_t*)tex, (const int*)bflag,
+      (uint32_t*)out, (float*)outz, *p);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """The column-crossing scan rasteriser for grid meshes, on PyTorch and CUDA.
 
 Counterpart of ``depthrenderer_tpu/ops/raster_scan.py`` (standard variant,
-``texture``/``debug_z`` modes, raw packed-RGBA output). For each pixel it finds
-the grid cell whose projected micro-triangle covers it:
+``texture``/``debug_z``/``texture_z`` modes, raw packed-RGBA output, and the
+fidelity tiers built on it). For each pixel it finds the grid cell whose
+projected micro-triangle covers it:
 
 1. **prep** (:func:`prep_scan`, plain PyTorch): project the grid, then derive
    the per-band window origin ``w0``, the per-(band, 128-column chunk) scan
@@ -12,14 +13,26 @@ the grid cell whose projected micro-triangle covers it:
 2. **solve** (:func:`solve_records`): per (band, scanline, grid column), the
    first ``nbr`` rows where the column polyline crosses the scanline become
    records: crossing x and z, bracket row, and ``sr`` strip rows of
-   (sx, sy, z).
+   (sx, sy, z), with ``dual_col`` also the right column's (sx, sy, z) at the
+   same rows.
 3. **march** (:func:`march_exact`): per pixel, the march picks the records
    whose crossing pair brackets the pixel (top ``hyps`` by crossing depth),
    the exact edge tests run on the strip cells, and the colfix fan re-tests
    every scanned row around each slot's top-1 column where the block still
-   has holes. Depth ties go to the lowest triangle id.
+   has holes (at K >= 2 the inner fan first, then the outer cells where
+   holes remain). Depth ties go to the lowest triangle id.
 4. **shade** (:func:`shade`): bilinear RGBA8 sampling into packed uint32
-   pixels, R in the low byte.
+   pixels, R in the low byte; ``texture_z`` also writes the raster depth.
+
+A ``bflag`` per band (the patch tier's sparse bands) makes all three passes
+skip an unflagged band, which shades packed 0 with raster depth FAR.
+
+The fidelity tiers run two passes and merge them by raster depth: the
+quality tier (``row_edge``, :func:`render_frames_scan_quality`) adds a full
+pass over the transposed problem, the patch tier (``patch``,
+:func:`render_frames_scan_patched`) runs that pass only on the bands and
+blocks where pass 1 left holes. :func:`tier_configs` derives both passes'
+configs.
 
 Each of solve, march and shade is one hand-written CUDA kernel in
 ``csrc/scan.cu`` (built with nvcc on first use) and has a plain PyTorch twin
@@ -35,6 +48,9 @@ value, and the tests count the pixels where that differs):
 * the colfix fan's two-subtable column window (``NS2``): fan columns anywhere
   in the fetch window are tested, and the fan's row bounds are the union over
   every 128-column chunk its corners land in;
+* the record fetch's two-subtable window, which the JAX kernel uses when the
+  fetch window is 4 or more 128-column subtables (``cw = 384``: the
+  transposed tier pass at 1080p): every fetch reads its own column;
 * the ``pack_xy`` 16+16-bit strip coding: strips are stored as float32.
   ``ScanConfig.pack_xy`` is accepted and has no effect.
 
@@ -80,11 +96,13 @@ class ScanConfig:
     :param pack_xy: accepted for config parity; the port stores float32
         strips, so it has no effect.
 
-    ``edge_cull_threshold``, ``big_grid``, ``dual_col``, ``row_edge``,
-    ``patch``, ``mxu_march``, ``colfix`` other than None or 1 and
-    ``tex_rows``/``tex_cols``
-    are kept so a JAX config converts one to one; the port renders only the
-    standard variant and raises ``NotImplementedError`` for the others.
+    :param dual_col: records carry their right column's corners.
+    :param row_edge: the quality tier (a transposed second pass).
+    :param patch: the patch tier (a sparse transposed second pass).
+
+    ``edge_cull_threshold``, ``big_grid``, ``mxu_march`` and
+    ``tex_rows``/``tex_cols`` are kept so a JAX config converts one to one;
+    the port raises ``NotImplementedError`` for the first three.
     """
 
     rmax: int = 320
@@ -128,8 +146,14 @@ class ScanConfig:
     @property
     def nrec(self) -> int:
         """float32 record planes per slot: sxc, zc, basew + sr strip rows of
-        (sx, sy, z)."""
-        return 3 + 3 * self.sr
+        (sx, sy, z), and with ``dual_col`` the right column's (sx, sy, z)
+        after each row's own."""
+        return 3 + self.per_row * self.sr
+
+    @property
+    def per_row(self) -> int:
+        """Record planes per strip row."""
+        return 6 if self.dual_col else 3
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -224,18 +248,16 @@ def check_supported(config: ScanConfig):
     """Raise ``NotImplementedError`` for a config outside the ported slice."""
     unported = [name for name, on in (
         ("big_grid", config.big_grid),
-        ("dual_col", config.dual_col),
-        ("row_edge (quality tier)", config.row_edge),
-        ("patch", config.patch),
-        ("mxu_march", config.mxu_march),
         ("edge_cull_threshold", config.edge_cull_threshold is not None),
-        ("colfix other than None or 1 (0, and the K >= 2 cascade)",
-         config.colfix not in (None, 1)),
     ) if on]
     if unported:
         raise NotImplementedError(
             f"scan config {', '.join(unported)} is not ported yet "
-            "(ROADMAP.md queue 1, 'scan variants')")
+            "(ROADMAP.md queue 1 item 5, 'd11/d12 and edge culling')")
+    if config.mxu_march:
+        raise NotImplementedError(
+            "scan config mxu_march is not ported (ROADMAP.md queue 1 item 8: "
+            "measured slower on the TPU, not needed on a GPU)")
 
 
 # ---------------------------------------------------------------------------
@@ -374,7 +396,8 @@ def prep_scan(mvps, vertex_grid, width: int, height: int,
     (the JAX package's ``_prep_scan_impl``, batched over frames)."""
     if config.big_grid:
         raise NotImplementedError(
-            "the big_grid scan variant is not ported yet (ROADMAP.md)")
+            "the big_grid scan variant is not ported yet (ROADMAP.md queue "
+            "1 item 5, 'd11/d12 and edge culling')")
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device
     mvps = torch.as_tensor(mvps, dtype=_F32, device=dev)
@@ -615,8 +638,18 @@ class _Consts(NamedTuple):
 _BAND_CHUNK = 8  # bands per vectorised step of the plain passes
 
 
+def _active_chunks(nbands: int, bflag):
+    """The band ranges [b0, b1) the plain passes process: chunks of
+    ``_BAND_CHUNK`` bands, without those no flagged band is in."""
+    flags = None if bflag is None else bflag.bool().tolist()
+    for b0 in range(0, nbands, _BAND_CHUNK):
+        b1 = min(b0 + _BAND_CHUNK, nbands)
+        if flags is None or any(flags[b0:b1]):
+            yield b0, b1
+
+
 def solve_records_plain(win, w0, bounds, g: ScanGeometry,
-                        config: ScanConfig):
+                        config: ScanConfig, bflag=None):
     """Column solve for one frame -> records (nbands, nbr, nrec, 8, CL).
 
     For each (band, scanline y, column c) with chunk bounds [kb, ke): the
@@ -625,10 +658,18 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
     ``sxc, zc`` (the crossing interpolated at ``frac = (sy[k]-qy) /
     max(sy[k]-sy[k+1], 1e-12)``), ``basew = k`` and strip rows
     ``k-off .. k-off+sr-1`` of (sx, sy, z); strip rows above the window read
-    0. Empty slots hold ``sxc = zc = FAR``, ``basew = -1e9``, zero strips.
+    0. With ``dual_col`` each strip row also holds the right column's
+    (sx, sy, z) at the same window row: column c + 1, and for the last
+    column of the table the last chunk's first column (the JAX kernel's
+    lane roll within its last chunk; the march masks that column). Empty
+    slots hold ``sxc = zc = FAR``, ``basew = -1e9``, zero strips.
+
+    ``bflag`` (nbands,) skips unflagged bands, as the kernel does; their
+    records are not defined there and are never read.
     """
     dev = win.device
     SR, OFF, NBR, R = config.sr, config.off, config.nbr, config.rmax
+    PR = config.per_row
     CL = g.cl
     rec = torch.zeros((g.nbands, NBR, config.nrec, 8, CL), dtype=_F32,
                       device=dev)
@@ -640,12 +681,15 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
     multi_all = ((bnd >> 24) & 1).repeat_interleave(128, dim=1)
     kk = torch.arange(R - 1, device=dev)[None, None, :, None]
     yy = torch.arange(8, dtype=_F32, device=dev)
-    for b0 in range(0, g.nbands, _BAND_CHUNK):
-        b1 = min(b0 + _BAND_CHUNK, g.nbands)
+    right = torch.arange(1, CL + 1, device=dev)
+    right[-1] = CL - 128
+    for b0, b1 in _active_chunks(g.nbands, bflag):
         B = b1 - b0
         rows = (w0[b0:b1].to(torch.int64) * 8)[:, None] + torch.arange(
             R, device=dev)[None]                                 # (B, R)
         wv = win[:, rows]                                        # (3,B,R,CL)
+        if config.dual_col:
+            wv = torch.cat([wv, wv[..., right]])                 # (6,B,R,CL)
         bandf = torch.arange(b0, b1, dtype=_F32, device=dev)
         qy = (g.height - (bandf[:, None] * 8.0 + yy[None])) - 0.5  # (B, 8)
         q4 = qy[:, :, None, None]
@@ -679,10 +723,10 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
             out[:, 2] = torch.where(has, k.to(_F32), out[:, 2])
             for sj in range(SR):
                 r = k - OFF + sj
-                for v in range(3):
+                for v in range(PR):
                     val = torch.where(r >= 0, at(v, r), torch.zeros_like(x0))
-                    out[:, 3 + 3 * sj + v] = torch.where(
-                        has, val, out[:, 3 + 3 * sj + v])
+                    out[:, 3 + PR * sj + v] = torch.where(
+                        has, val, out[:, 3 + PR * sj + v])
     return rec
 
 
@@ -740,26 +784,40 @@ def _edge(xa, ya, xb, yb, qx, qy):
     return (xb - xa) * (qy - ya) - (yb - ya) * (qx - xa)
 
 
+def n_attrs(raster_z: bool) -> int:
+    """attrs planes: u, v, model z, coverage, and the raster z when a
+    consumer reads it (the ``texture_z`` shade, the attrs merge)."""
+    return 5 if raster_z else 4
+
+
 def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
-                      config: ScanConfig):
+                      config: ScanConfig, bflag=None, raster_z: bool = False):
     """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL)
-    float32: u, v, model z, coverage (1.0 / 0.0).
+    float32: u, v, model z, coverage (1.0 / 0.0); with ``raster_z`` a fifth
+    plane, the raster z (FAR where uncovered).
 
     ``minv`` is the frame's (8,) float32 inverse-MVP rows 2 and 3. Pixels
     are processed as (bands, 8, blocks, 128); the JAX kernel's block-level
     gates (slot gate, hypothesis-2 gate, colfix gate and fan row bounds)
-    reduce over each 8x128 block.
+    reduce over each 8x128 block. ``bflag`` (nbands,) leaves unflagged bands
+    uncovered (zeros, raster z FAR) without marching them.
     """
     dev = rec.device
     c = _Consts.of(g)
-    out = torch.zeros((4, g.hpad, g.wl), dtype=_F32, device=dev)
+    na = n_attrs(raster_z)
+    out = torch.zeros((na, g.hpad, g.wl), dtype=_F32, device=dev)
+    if raster_z:
+        out[4] = _FAR
     m2 = [common.const(_f32(minv[k]), rec) for k in range(4)]
     m3 = [common.const(_f32(minv[4 + k]), rec) for k in range(4)]
-    for b0 in range(0, g.nbands, _BAND_CHUNK):
-        b1 = min(b0 + _BAND_CHUNK, g.nbands)
+    for b0, b1 in _active_chunks(g.nbands, bflag):
         attrs = _march_bands(rec[b0:b1], win, w0[b0:b1], bounds, canch,
                              mid, m2, m3, b0, g, c, config)
-        out[:, b0 * 8:b1 * 8] = attrs.reshape(4, (b1 - b0) * 8, g.wl)
+        attrs = attrs[:na].reshape(na, (b1 - b0) * 8, g.wl)
+        if bflag is not None:
+            keep = bflag[b0:b1].bool().repeat_interleave(8)[None, :, None]
+            attrs = torch.where(keep, attrs, out[:, b0 * 8:b1 * 8])
+        out[:, b0 * 8:b1 * 8] = attrs
     return out
 
 
@@ -789,10 +847,9 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
     canch_m = canch * 8                                      # (nblk,)
     canch_f = canch_m // 128
     off_f = canch_m - canch_f * 128
-    if CW <= 128:
-        midb = torch.full((B, nblk), -1, dtype=torch.int64, device=dev)
-    else:
-        midb = mid.reshape(g.nbands, nblk)[b0:b0 + B].to(torch.int64)
+    # Prep gives -1 (wide) everywhere when cw <= 128; the patch pass's block
+    # gate may set -2 there too.
+    midb = mid.reshape(g.nbands, nblk)[b0:b0 + B].to(torch.int64)
     w0r = w0.to(torch.int64) * 8                             # (B,) rows
     w0f = w0r.to(_F32)[:, None, None, None]
 
@@ -828,21 +885,16 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
         return (m3[0] * (x * sxw - 1.0) + m3[1] * (y * syw - 1.0)
                 + m3[2] * z + m3[3])
 
-    def exact_record(best_in, s, h):
-        jf = torch.clamp(h, 0.0, float(MW - 1))
-        j1 = jf.to(torch.int64) + blk(off_f)
+    def realigned_right(s, j1, bw1):
+        """The right neighbour record's strip, realigned by the bracket-row
+        delta d = bw2 - bw1: aligned2[k] = strip2[k - d] for |d| <= dmax,
+        else NaN (which fails every test it reaches). Where the JAX kernel
+        skips this for a block with no shear it passes strip2 with NaN z for
+        a missing right record: the same coverage, lane by lane."""
         j2 = j1 + 1
-        bw1 = fetch(s, 2, j1)
         bw2 = fetch(s, 2, j2)
-        strip1 = [tuple(fetch(s, 3 + 3 * k + v, j1) for v in range(3))
-                  for k in range(SR)]
         strip2 = [tuple(fetch(s, 3 + 3 * k + v, j2) for v in range(3))
                   for k in range(SR)]
-        # Realign the right strip by the bracket-row delta d = bw2 - bw1:
-        # aligned2[k] = strip2[k - d] for |d| <= dmax, else NaN (which fails
-        # every test it reaches). Where the JAX kernel skips this for a block
-        # with no shear it passes strip2 with NaN z for a missing right
-        # record: the same coverage, lane by lane.
         dmax = SR - 1 if config.dmax is None else min(config.dmax, SR - 1)
         d = bw2 - bw1
         nan = torch.full_like(bw1, float("nan"))
@@ -856,6 +908,22 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
                     acc = tuple(torch.where(m, strip2[kk][v], acc[v])
                                 for v in range(3))
             aligned2.append(acc)
+        return aligned2
+
+    def exact_record(best_in, s, h):
+        jf = torch.clamp(h, 0.0, float(MW - 1))
+        j1 = jf.to(torch.int64) + blk(off_f)
+        bw1 = fetch(s, 2, j1)
+        PR = config.per_row
+        strip1 = [tuple(fetch(s, 3 + PR * k + v, j1) for v in range(3))
+                  for k in range(SR)]
+        if config.dual_col:
+            # Self-contained record: the right column's corners at the
+            # record's own rows (no neighbour fetch, no realign).
+            aligned2 = [tuple(fetch(s, 3 + PR * k + 3 + v, j1)
+                              for v in range(3)) for k in range(SR)]
+        else:
+            aligned2 = realigned_right(s, j1, bw1)
         iw1 = [invw(*strip1[k]) for k in range(SR)]
         iw2 = [invw(*aligned2[k]) for k in range(SR)]
         cg = blk(canch_f * 128).to(_F32) + j1.to(_F32)
@@ -953,10 +1021,13 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
                       torch.where(gate, m1, FAR)))
 
     if config.colfix is not None:
-        for h1s, m1s in fixes:
-            go = block_any((best.id >= _f32(1.0e30)) & (m1s < _f32(_FAR * 0.5)))
-            best = _colfix(best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
-                           canch_f, off_f, b0, g, c, config, m2, m3)
+        for offs in fan_cascade(config.colfix):
+            for h1s, m1s in fixes:
+                go = block_any((best.id >= _f32(1.0e30))
+                               & (m1s < _f32(_FAR * 0.5)))
+                best = _colfix(best, go, h1s, m1s, qx, qy, win, w0r, w0f,
+                               bounds, canch_f, off_f, b0, g, c, config, m2,
+                               m3, offs)
 
     bz = best.zn / best.ar
     cov = bz < FAR
@@ -969,23 +1040,33 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
     ndcy = qy * c.syw - 1.0
     num = (m2[0] * ndcx + m2[1] * ndcy + m2[2] * bz + m2[3]) * best.ar
     zm = torch.where(cov, num / den, zero)
-    return torch.stack([u, v, zm, cov.to(_F32)])             # (4,B,8,nblk,128)
+    return torch.stack([u, v, zm, cov.to(_F32), bz])         # (5,B,8,nblk,128)
 
 
-_FAN_OFFSETS = (-1, 0, 1, 2)  # colfix K=1: corner columns j0-1 .. j0+2
+def fan_cascade(k: int):
+    """The colfix fan calls for half-width ``k``, in order, each as its
+    corner-column offsets from the top-1 column: the inner fan (cells j0-1
+    .. j0+1; at K = 0 the one cell j0), then at K >= 2 the outer cells
+    j0-K .. j0-2 and j0+2 .. j0+K on the blocks the inner fan left holed.
+    Cells lie between consecutive offsets only."""
+    inner = tuple(range(-min(k, 1), min(k, 1) + 2))
+    if k < 2:
+        return (inner,)
+    return inner, tuple(range(-k, 0)) + tuple(range(2, k + 2))
 
 
 def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
             canch_f, off_f, b0, g: ScanGeometry, c: _Consts,
-            config: ScanConfig, m2, m3) -> _Best:
-    """The colfix fan (K=1) for one slot, on the blocks where ``go`` holds.
+            config: ScanConfig, m2, m3, offs) -> _Best:
+    """One colfix fan call (see :func:`fan_cascade`) for one slot, on the
+    blocks where ``go`` holds.
 
     For each pixel with a real marched bracket (``m1 < FAR/2``), the fan
-    corner columns are ``j0 - 1 .. j0 + 2`` around its top-1 column ``j0``
-    (cells j0-1, j0 and j0+1); every
-    window row k in the block's [rb0*8, rb1*8) is exact-tested over the
-    fan's cells, masked to [kb_u, ke_u) — the union of the scan bounds of
-    the chunks any valid fan corner of the block lands in.
+    corner columns are ``j0 + o`` for ``o`` in ``offs`` around its top-1
+    column ``j0``; every window row k in the block's [rb0*8, rb1*8) is
+    exact-tested over the fan's cells, masked to [kb_u, ke_u) — the union
+    of the scan bounds of the chunks any valid fan corner of the block lands
+    in.
     """
     B, _, nblk, _ = qx.shape
     sel = go.expand(B, 1, nblk, 1)[:, 0, :, 0].nonzero()    # (Nb, 2)
@@ -997,7 +1078,7 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
     CWF = min(config.cw + 128, g.cl)
     MW = config.cw
     nsub = CWF // 128
-    NF = len(_FAN_OFFSETS)
+    NF = len(offs)
     inv_ncm1 = common.const(c.inv_ncm1, qx)
     inv_nrm1 = common.const(c.inv_nrm1, qx)
     sxw = common.const(c.sxw, qx)
@@ -1013,7 +1094,7 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
     j0 = torch.clamp(h1, 0.0, float(MW - 1)).to(torch.int64) + off_f[ki][:,
                                                                           None,
                                                                           None]
-    ix = [j0 + o for o in _FAN_OFFSETS]
+    ix = [j0 + o for o in offs]
     colok = [hitok & (x >= 0) & (x <= CWF - 1) for x in ix]
     col = [cf[:, None, None] * 128 + torch.clamp(x, 0, CWF - 1) for x in ix]
     cg = [cc.to(_F32) for cc in col]
@@ -1054,7 +1135,7 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
         return (m3[0] * (x * sxw - 1.0) + m3[1] * (y * syw - 1.0)
                 + m3[2] * z + m3[3])
 
-    cells = range(NF - 1)
+    cells = [f for f in range(NF - 1) if offs[f + 1] == offs[f] + 1]
     start = rb0 * 8
     kb3, ke3 = kb_u[:, None, None], ke_u[:, None, None]
     st3 = start[:, None, None]
@@ -1106,16 +1187,34 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
     return _Best(*out)
 
 
-def shade_plain(attrs, texq, ht: int, wt: int, mode: str):
-    """Bilinear RGBA8 shade of attrs (4, HPAD, WL) -> (HPAD, WL) int32
-    packed pixels, R in the low byte; background (0, 0, 0, 255)."""
+def shade_plain(attrs, texq, ht: int, wt: int, mode: str, bflag=None):
+    """Bilinear RGBA8 shade of attrs (4 or 5, HPAD, WL) -> (HPAD, WL) int32
+    packed pixels, R in the low byte; background (0, 0, 0, 255).
+
+    ``mode`` ``texture_z`` shades as ``texture`` and returns ``(packed,
+    z)``: z the raster depth (attrs plane 4) where covered, FAR elsewhere.
+    ``bflag`` (nbands,; texture_z only) gives unflagged bands packed 0 and z
+    FAR.
+    """
+    if bflag is not None and mode != "texture_z":
+        raise ValueError("sparse bands exist only in the texture_z mode")
     tex = texq.to(torch.int64)
     texels = torch.stack([(tex >> s) & 0xFF for s in (0, 8, 16, 24)], dim=-1)
-    rgba = common.shade(attrs[3] > 0.5, attrs[0], attrs[1], attrs[2],
-                        texels.to(_F32), mode).to(torch.int64)
+    cov = attrs[3] > 0.5
+    rgba = common.shade(cov, attrs[0], attrs[1], attrs[2], texels.to(_F32),
+                        "debug_z" if mode == "debug_z" else "texture").to(
+                            torch.int64)
     p = rgba[..., 0] | (rgba[..., 1] << 8) | (rgba[..., 2] << 16) | (
         rgba[..., 3] << 24)
-    return ((p + 2**31) % 2**32 - 2**31).to(_I32)
+    packed = ((p + 2**31) % 2**32 - 2**31).to(_I32)
+    if mode != "texture_z":
+        return packed
+    z = torch.where(cov, attrs[4], common.const(_FAR, attrs))
+    if bflag is not None:
+        keep = bflag.bool().repeat_interleave(8)[:, None]
+        packed = torch.where(keep, packed, torch.zeros_like(packed))
+        z = torch.where(keep, z, common.const(_FAR, z))
+    return packed, z
 
 
 # ---------------------------------------------------------------------------
@@ -1141,6 +1240,9 @@ def build_kernels(force: bool = False) -> Path:
     return cuda_build.build("scan.cu", force=force)
 
 
+_MODES = {"texture": 0, "debug_z": 1, "texture_z": 2}  # ScanParams.mode
+
+
 class _Params(ctypes.Structure):
     """Mirror of ``struct ScanParams`` in csrc/scan.cu (field order and
     types must match)."""
@@ -1148,7 +1250,7 @@ class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "width", "height", "n_r", "n_c", "cl", "rpad", "wl", "hpad",
         "nbands", "nchunks", "nblk", "rmax", "cw", "cwf", "sr", "off", "nbr",
-        "hyps", "dmax", "colfix", "ht", "wt", "mode")] + [
+        "hyps", "dmax", "colfix", "ht", "wt", "mode", "dual", "raster_z")] + [
         (name, ctypes.c_float) for name in (
             "sxw", "syw", "inv_ncm1", "inv_nrm1")] + [
         ("m2", ctypes.c_float * 4), ("m3", ctypes.c_float * 4)]
@@ -1160,8 +1262,8 @@ def _load_lib():
         if _lib is None:
             lib = ctypes.CDLL(str(build_kernels()))
             vp, ip = ctypes.c_void_p, ctypes.POINTER(_Params)
-            for name, n_ptr in (("scan_solve", 4), ("scan_march", 7),
-                                ("scan_shade", 3)):
+            for name, n_ptr in (("scan_solve", 5), ("scan_march", 8),
+                                ("scan_shade", 5)):
                 fn = getattr(lib, name)
                 fn.restype = ctypes.c_int
                 fn.argtypes = [vp] * n_ptr + [ip, vp]
@@ -1172,7 +1274,7 @@ def _load_lib():
 
 
 def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
-            mode: str = "texture") -> _Params:
+            mode: str = "texture", raster_z: bool = False) -> _Params:
     c = _Consts.of(g)
     dmax = config.sr - 1 if config.dmax is None else min(config.dmax,
                                                          config.sr - 1)
@@ -1183,9 +1285,10 @@ def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
         cwf=min(config.cw + 128, g.cl), sr=config.sr, off=config.off,
         nbr=config.nbr, hyps=config.hyps, dmax=dmax,
         colfix=-1 if config.colfix is None else config.colfix,
-        ht=int(tex_hw[0]), wt=int(tex_hw[1]),
-        mode=1 if mode == "debug_z" else 0,
-        sxw=c.sxw, syw=c.syw, inv_ncm1=c.inv_ncm1, inv_nrm1=c.inv_nrm1)
+        ht=int(tex_hw[0]), wt=int(tex_hw[1]), mode=_MODES[mode],
+        dual=int(config.dual_col), raster_z=int(raster_z), sxw=c.sxw,
+        syw=c.syw,
+        inv_ncm1=c.inv_ncm1, inv_nrm1=c.inv_nrm1)
     if minv is not None:
         for k in range(4):
             p.m2[k] = _f32(minv[k])
@@ -1204,60 +1307,88 @@ def _launch(name, ptrs, params):
     LAUNCHES[name[len("scan_"):]] += 1
 
 
-def solve_records(win, w0, bounds, g: ScanGeometry, config: ScanConfig):
-    """Column solve for one frame -> records (nbands, nbr, nrec, 8, CL).
-    CPU tensors: :func:`solve_records_plain`; CUDA: the ``solve`` kernel."""
-    if cuda_build.on_cpu(win, w0, bounds):
-        return solve_records_plain(win, w0, bounds, g, config)
-    cuda_build.check_cuda({"win": win, "w0": w0, "bounds": bounds},
-                          {"win": _F32, "w0": _I32, "bounds": _I32},
-                          {"win": (3, g.rpad, g.cl), "w0": (g.nbands,),
-                           "bounds": (g.nbands * g.nchunks,)})
+def _check(**named):
+    """``check_cuda`` over ``name=(tensor, dtype, shape)``, skipping absent
+    (None) tensors."""
+    named = {k: v for k, v in named.items() if v[0] is not None}
+    cuda_build.check_cuda({k: v[0] for k, v in named.items()},
+                          {k: v[1] for k, v in named.items()},
+                          {k: v[2] for k, v in named.items()})
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _on_cpu(*tensors) -> bool:
+    return cuda_build.on_cpu(*(t for t in tensors if t is not None))
+
+
+def solve_records(win, w0, bounds, g: ScanGeometry, config: ScanConfig,
+                  bflag=None):
+    """Column solve for one frame -> records (nbands, nbr, nrec, 8, CL);
+    ``bflag`` (nbands,) int32 skips unflagged bands. CPU tensors:
+    :func:`solve_records_plain`; CUDA: the ``solve`` kernel."""
+    if _on_cpu(win, w0, bounds, bflag):
+        return solve_records_plain(win, w0, bounds, g, config, bflag)
+    _check(win=(win, _F32, (3, g.rpad, g.cl)), w0=(w0, _I32, (g.nbands,)),
+           bounds=(bounds, _I32, (g.nbands * g.nchunks,)),
+           bflag=(bflag, _I32, (g.nbands,)))
     rec = torch.empty((g.nbands, config.nbr, config.nrec, 8, g.cl),
                       dtype=_F32, device=win.device)
     _launch("scan_solve", [win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
-                           rec.data_ptr()], _params(g, config))
+                           _ptr(bflag), rec.data_ptr()], _params(g, config))
     return rec
 
 
 def march_exact(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
-                config: ScanConfig):
-    """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL).
-    CPU tensors: :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
-    if cuda_build.on_cpu(rec, win, w0, bounds, canch, mid):
+                config: ScanConfig, bflag=None, raster_z: bool = False):
+    """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL),
+    with ``raster_z`` (5, HPAD, WL) (see :func:`march_exact_plain`). CPU
+    tensors: :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
+    if _on_cpu(rec, win, w0, bounds, canch, mid, bflag):
         return march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g,
-                                 config)
-    cuda_build.check_cuda(
-        {"rec": rec, "win": win, "w0": w0, "bounds": bounds, "canch": canch,
-         "mid": mid},
-        {"rec": _F32, "win": _F32, "w0": _I32, "bounds": _I32,
-         "canch": _I32, "mid": _I32},
-        {"rec": (g.nbands, config.nbr, config.nrec, 8, g.cl),
-         "win": (3, g.rpad, g.cl), "w0": (g.nbands,),
-         "bounds": (g.nbands * g.nchunks,), "canch": (g.nblk,),
-         "mid": (g.nbands * g.nblk,)})
-    attrs = torch.empty((4, g.hpad, g.wl), dtype=_F32, device=rec.device)
+                                 config, bflag, raster_z)
+    _check(rec=(rec, _F32, (g.nbands, config.nbr, config.nrec, 8, g.cl)),
+           win=(win, _F32, (3, g.rpad, g.cl)), w0=(w0, _I32, (g.nbands,)),
+           bounds=(bounds, _I32, (g.nbands * g.nchunks,)),
+           canch=(canch, _I32, (g.nblk,)),
+           mid=(mid, _I32, (g.nbands * g.nblk,)),
+           bflag=(bflag, _I32, (g.nbands,)))
+    attrs = torch.empty((n_attrs(raster_z), g.hpad, g.wl), dtype=_F32,
+                        device=rec.device)
     _launch("scan_march",
             [rec.data_ptr(), win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
-             canch.data_ptr(), mid.data_ptr(), attrs.data_ptr()],
-            _params(g, config, minv=minv))
+             canch.data_ptr(), mid.data_ptr(), _ptr(bflag), attrs.data_ptr()],
+            _params(g, config, minv=minv, raster_z=raster_z))
     return attrs
 
 
-def shade(attrs, texq, g: ScanGeometry, config: ScanConfig, mode: str):
-    """Shade attrs (4, HPAD, WL) with the packed texture (Ht, Wt) int32 ->
-    (HPAD, WL) int32 packed RGBA. CPU: :func:`shade_plain`; CUDA: the
-    ``shade`` kernel."""
+def shade(attrs, texq, g: ScanGeometry, config: ScanConfig, mode: str,
+          bflag=None):
+    """Shade attrs (4 or 5, HPAD, WL) with the packed texture (Ht, Wt) int32
+    -> (HPAD, WL) int32 packed RGBA, and in the ``texture_z`` mode (5
+    planes) also the (HPAD, WL) float32 raster z (see :func:`shade_plain`).
+    CPU: :func:`shade_plain`; CUDA: the ``shade`` kernel."""
     ht, wt = texq.shape
-    if cuda_build.on_cpu(attrs, texq):
-        return shade_plain(attrs, texq, ht, wt, mode)
-    cuda_build.check_cuda({"attrs": attrs, "texq": texq},
-                          {"attrs": _F32, "texq": _I32},
-                          {"attrs": (4, g.hpad, g.wl), "texq": (ht, wt)})
+    na = attrs.shape[0] if attrs.dim() == 3 else 0
+    if na not in (4, 5) or (mode == "texture_z" and na != 5):
+        raise ValueError(f"shade in the {mode} mode takes attrs of "
+                         f"{'5' if mode == 'texture_z' else '4 or 5'} "
+                         f"planes, got shape {tuple(attrs.shape)}")
+    if _on_cpu(attrs, texq, bflag):
+        return shade_plain(attrs, texq, ht, wt, mode, bflag)
+    if bflag is not None and mode != "texture_z":
+        raise ValueError("sparse bands exist only in the texture_z mode")
+    _check(attrs=(attrs, _F32, (na, g.hpad, g.wl)),
+           texq=(texq, _I32, (ht, wt)), bflag=(bflag, _I32, (g.nbands,)))
     out = torch.empty((g.hpad, g.wl), dtype=_I32, device=attrs.device)
-    _launch("scan_shade", [attrs.data_ptr(), texq.data_ptr(), out.data_ptr()],
+    z = (torch.empty((g.hpad, g.wl), dtype=_F32, device=attrs.device)
+         if mode == "texture_z" else None)
+    _launch("scan_shade", [attrs.data_ptr(), texq.data_ptr(), _ptr(bflag),
+                           out.data_ptr(), _ptr(z)],
             _params(g, config, tex_hw=(ht, wt), mode=mode))
-    return out
+    return out if z is None else (out, z)
 
 
 # ---------------------------------------------------------------------------
@@ -1267,11 +1398,36 @@ def shade(attrs, texq, g: ScanGeometry, config: ScanConfig, mode: str):
 FRAME_GROUP = 16  # frames per prep batch
 
 
+def _upload_mvps(mvps, dev):
+    """(T, 4, 4) float32 MVPs -> (MVPs on ``dev``, (T, 8) inverse-MVP rows
+    from the host copy). MVPs given on the host reach the device by a
+    non-blocking copy, so nothing waits here."""
+    mvps_host = torch.as_tensor(mvps, dtype=_F32).cpu()
+    minv = minv_rows(mvps_host)
+    if dev.type == "cpu":
+        return mvps_host, minv
+    return mvps_host.pin_memory().to(dev, non_blocking=True), minv
+
+
+def _render_pass(p: ScanPrep, i: int, minv_i, g: ScanGeometry,
+                config: ScanConfig, texq, mode: str, bflag=None):
+    """Frame ``i`` of a prep batch through solve, march and shade -> the
+    shade's output (see :func:`shade`)."""
+    args = (p.win[i], p.w0[i], p.bounds[i])
+    rec = solve_records(*args, g, config, bflag)
+    attrs = march_exact(rec, *args, p.canch[i], p.mid[i], minv_i, g, config,
+                        bflag, raster_z=mode == "texture_z")
+    return shade(attrs, texq, g, config, mode, bflag)
+
+
 def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
                        config: ScanConfig, mode: str = "texture",
                        frame_batch: int = FRAME_GROUP):
     """Render frames through the scan passes, on the device of
-    ``vertex_grid``.
+    ``vertex_grid``: one pass, or with ``config.row_edge`` the quality tier
+    (:func:`render_frames_scan_quality`), or with ``config.patch`` in the
+    ``texture`` mode the patch tier (:func:`render_frames_scan_patched`;
+    other modes render the single pass, as the JAX package does).
 
     ``texture`` is the (Ht, Wt, 4) texels (quantised to 8 bits here).
     :return: ``(frames, overflow)``: (T, HPAD, WL) int32 packed RGBA (see
@@ -1286,16 +1442,18 @@ def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
     check_uv_grid(uv_grid)
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device
-    # The inverse-MVP rows come from a host copy; MVPs given on the host
-    # reach the device by a non-blocking copy, so nothing waits here.
-    mvps_host = torch.as_tensor(mvps, dtype=_F32).cpu()
-    minv = minv_rows(mvps_host)
-    mvps = (mvps_host if dev.type == "cpu"
-            else mvps_host.pin_memory().to(dev, non_blocking=True))
+    texture = torch.as_tensor(texture, device=dev)
+    if config.row_edge:
+        return render_frames_scan_quality(mvps, vertex_grid, texture, width,
+                                          height, config, mode, frame_batch)
+    if config.patch and mode == "texture":
+        return render_frames_scan_patched(mvps, vertex_grid, texture, width,
+                                          height, config, frame_batch)
+    mvps, minv = _upload_mvps(mvps, dev)
     T = mvps.shape[0]
     n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
     g = ScanGeometry.of(width, height, n_r, n_c, config)
-    texq = pack_texture(torch.as_tensor(texture, device=dev))
+    texq = pack_texture(texture)
     out = torch.empty((T, g.hpad, g.wl), dtype=_I32, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(0, T, frame_batch):
@@ -1303,10 +1461,8 @@ def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
                       config)
         overflow = torch.maximum(overflow, p.overflow_rows.max())
         for i in range(p.win.shape[0]):
-            rec = solve_records(p.win[i], p.w0[i], p.bounds[i], g, config)
-            attrs = march_exact(rec, p.win[i], p.w0[i], p.bounds[i],
-                                p.canch[i], p.mid[i], minv[s + i], g, config)
-            out[s + i] = shade(attrs, texq, g, config, mode)
+            out[s + i] = _render_pass(p, i, minv[s + i], g, config, texq,
+                                      mode)
     return out, overflow
 
 
@@ -1319,3 +1475,279 @@ def warn_overflow(overflow, config: ScanConfig):
         log(f"WARNING: scan depth-hull window clipped up to {ovf} candidate "
             f"row(s) (rmax={config.rmax}); raise ScanConfig.rmax or expect "
             f"misses at extreme depth relief.")
+
+
+# ---------------------------------------------------------------------------
+# The fidelity tiers: a transposed second pass, merged by raster depth
+# ---------------------------------------------------------------------------
+
+# Clip-space screen transpose of the second pass: ndcx' = -ndcy, ndcy' =
+# -ndcx (z, w unchanged). With the grid transposed too, the projected
+# triangles keep their winding, and transposed pixel (i', j') is original
+# pixel (j', i'); its records anchor on crossings of grid rows with vertical
+# scanlines, the cells a column pass misses where a pixel enters its cell
+# through a horizontal edge.
+ROW_EDGE_SWAP = np.array(((0.0, -1.0, 0.0, 0.0),
+                          (-1.0, 0.0, 0.0, 0.0),
+                          (0.0, 0.0, 1.0, 0.0),
+                          (0.0, 0.0, 0.0, 1.0)), np.float64)
+
+
+def swap_mvps(mvps) -> torch.Tensor:
+    """The second pass's MVPs: ``ROW_EDGE_SWAP @ mvp`` in host float64 (a
+    permutation with signs, so exact), rounded to float32."""
+    m = np.asarray(torch.as_tensor(mvps).detach().cpu(), np.float64)
+    return torch.from_numpy(
+        np.einsum("ij,tjk->tik", ROW_EDGE_SWAP, m).astype(np.float32))
+
+
+def tier_configs(config: ScanConfig, n_r: int, n_c: int, width: int,
+                 height: int):
+    """The two passes' configs of a tier -> ``(cfg1, cfg2)``: pass 1 over
+    the (width x height) image, pass 2 over the transposed (height x width)
+    one. The render path and the chip smoke both take them from here.
+
+    Quality (``row_edge``): pass 1 is ``config`` without the flag, at the
+    JAX package's larger texture window; pass 2 the suggested config of the
+    transposed output at ``config``'s strip knobs. Patch: pass 1 is
+    ``config`` without the flag; pass 2 takes cheap strips with a colfix of
+    its own when pass 1 has colfix, else quality-grade strips.
+    """
+    grid_n = max(n_r, n_c)
+    if config.row_edge:
+        cfg1 = dataclasses.replace(config, row_edge=False,
+                                   tex_rows=max(config.tex_rows, 128),
+                                   tex_cols=max(config.tex_cols, 384))
+        cfg2 = suggest_scan_config(
+            grid_n, height, width, sr=config.sr, off=config.off,
+            dmax=config.dmax, hyps=config.hyps,
+            edge_cull_threshold=config.edge_cull_threshold,
+            tex_rows=192, tex_cols=384)
+    elif config.patch:
+        cfg1 = dataclasses.replace(config, patch=False)
+        if config.colfix is not None:
+            knobs = dict(sr=6, off=2, dmax=4, hyps=1, colfix=1)
+        else:
+            knobs = dict(sr=max(config.sr, 12), off=max(config.off, 5),
+                         dmax=None, hyps=2)
+        cfg2 = suggest_scan_config(
+            grid_n, height, width, nbr=max(config.nbr, 2), tex_rows=192,
+            tex_cols=384, edge_cull_threshold=config.edge_cull_threshold,
+            **knobs)
+    else:
+        raise ValueError("tier_configs needs a row_edge or patch config")
+    return cfg1, cfg2
+
+
+def _scan_grouped(mvps, vertex_grid, texture, width, height,
+                  config: ScanConfig, mode: str, frame_batch: int,
+                  gates=None):
+    """One pass over frames in groups -> (outputs, overflow): ``texture_z``
+    gives ((T, HPAD, WL) int32 packed, (T, HPAD, WL) float32 raster z),
+    ``attrs`` gives (T, 5, HPAD, WL) attrs (``texture`` unused). ``gates``
+    ``(bflag (T, nbands), blkflag (T, nbands, nblk))`` from
+    :func:`patch_flags` restricts the pass to the flagged bands and blocks
+    (the patch tier's sparse pass)."""
+    dev = vertex_grid.device
+    mvps, minv = _upload_mvps(mvps, dev)
+    T = mvps.shape[0]
+    g = ScanGeometry.of(width, height, vertex_grid.shape[0],
+                        vertex_grid.shape[1], config)
+    plane = (T, g.hpad, g.wl)
+    if mode == "texture_z":
+        texq = pack_texture(texture)
+        outs = (torch.empty(plane, dtype=_I32, device=dev),
+                torch.empty(plane, dtype=_F32, device=dev))
+    else:
+        outs = torch.empty((T, n_attrs(True), g.hpad, g.wl), dtype=_F32,
+                           device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(0, T, frame_batch):
+        p = prep_scan(mvps[s:s + frame_batch], vertex_grid, width, height,
+                      config)
+        overflow = torch.maximum(overflow, p.overflow_rows.max())
+        bflag = None
+        if gates is not None:
+            bounds, mid = apply_patch_gates(
+                p.bounds, p.mid, p.canch, gates[1][s:s + frame_batch],
+                min(config.cw + 128, g.cl), g.cl)
+            p = p._replace(bounds=bounds, mid=mid)
+            bflag = gates[0][s:s + frame_batch]
+        for i in range(p.win.shape[0]):
+            fl = None if bflag is None else bflag[i]
+            if mode == "texture_z":
+                outs[0][s + i], outs[1][s + i] = _render_pass(
+                    p, i, minv[s + i], g, config, texq, mode, fl)
+            else:
+                args = (p.win[i], p.w0[i], p.bounds[i])
+                rec = solve_records(*args, g, config)
+                outs[s + i] = march_exact(rec, *args, p.canch[i], p.mid[i],
+                                          minv[s + i], g, config,
+                                          raster_z=True)
+    return outs, overflow
+
+
+def merge_row_edge_raw(rgba1, z1, rgba2, z2, width: int, height: int):
+    """Depth merge of two ``texture_z`` passes in pass 1's raw layout (T,
+    HPAD, WL): pass 2 (the transposed pass over the height x width image)
+    wins where its raster z is strictly nearer; padding and exact ties keep
+    pass 1 (an exact cross-pass tie is the same triangle)."""
+    r2 = torch.zeros_like(rgba1)
+    zz2 = torch.full_like(z1, _FAR)
+    r2[:, :height, :width] = rgba2[:, :width, :height].transpose(1, 2)
+    zz2[:, :height, :width] = z2[:, :width, :height].transpose(1, 2)
+    return torch.where(zz2 < z1, r2, rgba1)
+
+
+def merge_row_edge(a1, a2, width: int, height: int):
+    """Depth merge of two passes' attrs (T, 5, HPAD, WL): pass 2's covered
+    pixels win where their raster z is strictly lower, with its analytic UVs
+    mapped back (u = 1 - v', v = 1 - u': the grid transpose swaps the
+    parameter axes). Outside the image the result is 0."""
+    b1 = a1[:, :, :height, :width]
+    b2 = a2[:, :, :width, :height].transpose(2, 3)
+    b2m = torch.cat([1.0 - b2[:, 1:2], 1.0 - b2[:, 0:1], b2[:, 2:]], dim=1)
+    win2 = (b2[:, 3] > 0.5) & (b2[:, 4] < b1[:, 4])
+    out = torch.zeros_like(a1)
+    out[:, :, :height, :width] = torch.where(win2[:, None], b2m, b1)
+    return out
+
+
+def patch_flags(z1, width: int, height: int, nbands2: int, nblocks2: int):
+    """The transposed pass's work units that can fill pass-1 holes -> (bflag
+    (T, nbands2) int32, blkflag (T, nbands2, nblocks2) bool).
+
+    A hole is a pixel with raster z FAR strictly inside its screen column's
+    or its screen row's covered span. Transposed band i' covers original
+    columns [8i', 8i'+8), block b' original rows [128b', 128b'+128).
+    """
+    T = z1.shape[0]
+    dev = z1.device
+    cov = z1[:, :height, :width] < common.const(_FAR * 0.5, z1)
+    big = 1 << 20
+    row = torch.arange(height, device=dev)[None, :, None]
+    col = torch.arange(width, device=dev)[None, None, :]
+    ymin = torch.where(cov, row, big).amin(dim=1, keepdim=True)
+    ymax = torch.where(cov, row, -1).amax(dim=1, keepdim=True)
+    xmin = torch.where(cov, col, big).amin(dim=2, keepdim=True)
+    xmax = torch.where(cov, col, -1).amax(dim=2, keepdim=True)
+    hole = ~cov & (((row > ymin) & (row < ymax))
+                   | ((col > xmin) & (col < xmax)))
+    holep = torch.zeros((T, nblocks2 * 128, nbands2 * 8), dtype=torch.bool,
+                        device=dev)
+    holep[:, :height, :width] = hole
+    f = holep.reshape(T, nblocks2, 128, nbands2, 8)
+    blkflag = f.any(dim=4).any(dim=2).transpose(1, 2).contiguous()
+    return blkflag.any(dim=2).to(_I32), blkflag
+
+
+def apply_patch_gates(bounds, mid, canch, blkflag, cwf: int, cl: int):
+    """Restrict a prepped pass (batched over T) to the flagged blocks ->
+    ``(bounds, mid)``: unflagged blocks get ``mid = -2`` (the march skips
+    them), and solve chunks no flagged block can read get zeroed bounds. A
+    wide block reads its fetch window [canch_f, canch_f + cwf/128 + 1)
+    chunks; a narrow one (``mid >= 0``) the three chunks from its narrow
+    window's first."""
+    T, nb2, nblk2 = blkflag.shape
+    mid_g = mid.reshape(T, nb2, nblk2)
+    mid2 = torch.where(blkflag.reshape(T, -1), mid, -2).to(_I32)
+    canch_f = (canch * 8) // 128                              # (T, nblk2)
+    off_f = canch * 8 - canch_f * 128
+    ch_i = torch.arange(cl // 128, device=bounds.device)[None, None, None, :]
+    narrow = blkflag & (mid_g >= 0)
+    b0 = canch_f[:, None, :] + (torch.clamp(mid_g, min=0) * 8
+                                + off_f[:, None, :]) // 128
+    lo_w = canch_f[:, None, :]
+    lo = torch.where(narrow, b0, lo_w)[..., None]
+    hi = torch.where(narrow, b0 + 3, lo_w + (cwf // 128 + 1))[..., None]
+    act = (blkflag & (mid_g != -2))[..., None]
+    needed = ((ch_i >= lo) & (ch_i < hi) & act).any(dim=2)
+    bounds2 = torch.where(needed.reshape(T, -1), bounds, 0).to(_I32)
+    return bounds2.contiguous(), mid2.contiguous()
+
+
+def _transposed(vertex_grid, texture):
+    """The second pass's contiguous transposed grid and texture."""
+    return (vertex_grid.transpose(0, 1).contiguous(),
+            texture.transpose(0, 1).contiguous())
+
+
+def render_frames_scan_quality(mvps, vertex_grid, texture, width, height,
+                               config: ScanConfig, mode: str = "texture",
+                               frame_batch: int = FRAME_GROUP):
+    """The quality tier (``config.row_edge``) -> ``(frames, overflow)`` as
+    :func:`render_frames_scan`.
+
+    Pass 1 is the column scan at ``cfg1``, pass 2 the same passes over the
+    transposed problem (transposed grid, ``ROW_EDGE_SWAP @ mvp``, width and
+    height swapped) at ``cfg2`` (:func:`tier_configs`). In the ``texture``
+    mode each pass shades itself (pass 2 samples the transposed texture) and
+    the packed pixels merge by raster z (:func:`merge_row_edge_raw`); in the
+    ``debug_z`` mode the attrs merge (:func:`merge_row_edge`) and shade once.
+    """
+    dev = vertex_grid.device
+    n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
+    cfg1, cfg2 = tier_configs(config, n_r, n_c, width, height)
+    mvps = torch.as_tensor(mvps, dtype=_F32).cpu()
+    mvps2 = swap_mvps(mvps)
+    vgrid_t, tex_t = _transposed(vertex_grid, texture)
+    g = ScanGeometry.of(width, height, n_r, n_c, cfg1)
+    T = mvps.shape[0]
+    out = torch.empty((T, g.hpad, g.wl), dtype=_I32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    texq = None if mode == "texture" else pack_texture(texture)
+    for s in range(0, T, frame_batch):
+        e = min(s + frame_batch, T)
+        if mode == "texture":
+            (r1, z1), o1 = _scan_grouped(mvps[s:e], vertex_grid, texture,
+                                         width, height, cfg1, "texture_z",
+                                         frame_batch)
+            (r2, z2), o2 = _scan_grouped(mvps2[s:e], vgrid_t, tex_t, height,
+                                         width, cfg2, "texture_z",
+                                         frame_batch)
+            out[s:e] = merge_row_edge_raw(r1, z1, r2, z2, width, height)
+        else:
+            a1, o1 = _scan_grouped(mvps[s:e], vertex_grid, None, width,
+                                   height, cfg1, "attrs", frame_batch)
+            a2, o2 = _scan_grouped(mvps2[s:e], vgrid_t, None, height, width,
+                                   cfg2, "attrs", frame_batch)
+            merged = merge_row_edge(a1, a2, width, height)
+            for i in range(e - s):
+                out[s + i] = shade(merged[i], texq, g, cfg1, mode)
+        overflow = torch.maximum(overflow, torch.maximum(o1, o2))
+    return out, overflow
+
+
+def render_frames_scan_patched(mvps, vertex_grid, texture, width, height,
+                               config: ScanConfig,
+                               frame_batch: int = FRAME_GROUP):
+    """The patch tier (``config.patch``, texture mode) -> ``(frames,
+    overflow)`` as :func:`render_frames_scan`.
+
+    Pass 1 is the column scan at ``cfg1``; its raster z flags the holes
+    (:func:`patch_flags`), and the transposed pass at ``cfg2`` runs only on
+    the flagged bands (sparse bands) and blocks (:func:`apply_patch_gates`)
+    before the same packed depth merge as the quality tier.
+    """
+    dev = vertex_grid.device
+    n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
+    cfg1, cfg2 = tier_configs(config, n_r, n_c, width, height)
+    mvps = torch.as_tensor(mvps, dtype=_F32).cpu()
+    mvps2 = swap_mvps(mvps)
+    vgrid_t, tex_t = _transposed(vertex_grid, texture)
+    g1 = ScanGeometry.of(width, height, n_r, n_c, cfg1)
+    g2 = ScanGeometry.of(height, width, n_c, n_r, cfg2)
+    T = mvps.shape[0]
+    out = torch.empty((T, g1.hpad, g1.wl), dtype=_I32, device=dev)
+    overflow = torch.zeros((), dtype=torch.int64, device=dev)
+    for s in range(0, T, frame_batch):
+        e = min(s + frame_batch, T)
+        (r1, z1), o1 = _scan_grouped(mvps[s:e], vertex_grid, texture, width,
+                                     height, cfg1, "texture_z", frame_batch)
+        gates = patch_flags(z1, width, height, g2.nbands, g2.nblk)
+        (r2, z2), o2 = _scan_grouped(mvps2[s:e], vgrid_t, tex_t, height,
+                                     width, cfg2, "texture_z", frame_batch,
+                                     gates=gates)
+        out[s:e] = merge_row_edge_raw(r1, z1, r2, z2, width, height)
+        overflow = torch.maximum(overflow, torch.maximum(o1, o2))
+    return out, overflow

@@ -1,6 +1,7 @@
 """Where a clip's device time goes: ``render_clip`` under ``torch.profiler``.
 
     python -m depthrenderer_tpu_torch.profiling [--impl scan|pallas|grid]
+        [--tier quality|patch]
 
 Renders the synthetic scene (:mod:`.synthetic`) at mesh density 10 and
 1920x1080, 64 frames of the default sway at 60 fps, with a sink that drops
@@ -8,7 +9,8 @@ the frames, after one 16-frame warm-up group, and prints one JSON
 line: the card (``nvidia-smi`` name and power limit), wall ms, device busy ms
 (the sum of the CUDA kernels' and copies' self time), the busy share, peak
 device memory, and each kernel's ms per frame with its share of the busy
-time. It needs a CUDA device.
+time. ``--tier`` profiles one of the scan's fidelity tiers: ``quality``, or
+``patch`` with colfix 3. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ import torch
 
 WIDTH, HEIGHT, DENSITY, FRAMES, WARM = 1920, 1080, 10, 64, 16
 TOP = 12   # kernels listed
+TIERS = {"quality": {"quality": True}, "patch": {"patch": True, "colfix": 3}}
 
 
-def profile_clip(impl="pallas"):
+def profile_clip(impl="pallas", tier=None):
     """Profile one ``render_clip`` run -> dict (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -45,7 +48,8 @@ def profile_clip(impl="pallas"):
 
     def run(v):
         render_clip(mesh, projection, v, WIDTH, HEIGHT, impl=impl,
-                    on_frames=lambda s, f: None, device="cuda")
+                    on_frames=lambda s, f: None, device="cuda",
+                    **TIERS.get(tier, {}))
         torch.cuda.synchronize()
 
     run(views[:WARM])
@@ -69,7 +73,7 @@ def profile_clip(impl="pallas"):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return {
-        "card": card, "impl": impl, "frames": FRAMES,
+        "card": card, "impl": impl, "tier": tier, "frames": FRAMES,
         "size": f"{WIDTH}x{HEIGHT}", "density": DENSITY,
         "wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy, 2),
         "busy_share": round(busy / wall_ms, 4),  # 0 if nothing was traced
@@ -84,12 +88,16 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--impl", choices=("scan", "pallas", "grid"),
                     default="pallas")
+    ap.add_argument("--tier", choices=tuple(TIERS), default=None,
+                    help="a fidelity tier of the scan (implies --impl scan)")
     args = ap.parse_args(argv)
+    if args.tier is not None:
+        args.impl = "scan"
     if not torch.cuda.is_available():
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    print(json.dumps(profile_clip(args.impl)), flush=True)
+    print(json.dumps(profile_clip(args.impl, args.tier)), flush=True)
 
 
 if __name__ == "__main__":

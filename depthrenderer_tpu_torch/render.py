@@ -1,8 +1,9 @@
 """Clip rendering: the whole camera path as MVP batches through a rasteriser.
 
 Counterpart of ``depthrenderer_tpu/render.py``'s :func:`render_clip`: the
-column-crossing scan (the default), the tiled Pallas route and the tiled grid
-route (``MeshRenderer`` is not ported yet). Frames render in groups on the
+column-crossing scan (the default, with its fidelity tiers ``quality`` and
+``patch``), the tiled Pallas route and the tiled grid route (``MeshRenderer``
+is not ported yet). Frames render in groups on the
 current CUDA stream; each group's frames are copied into a pinned host buffer
 with ``non_blocking`` copies and a CUDA event, and the host hands group k to
 ``on_frames`` while group k+1 renders.
@@ -46,9 +47,9 @@ def _auto_impl(grid_n: int, width: int = 1920, height: int = 1080) -> str:
         return "scan"
     raise NotImplementedError(
         f"grid n={grid_n} resolves to the big_grid scan variant (d >= 11), "
-        "which is not ported yet (ROADMAP.md queue 1, 'scan variants'); "
-        "choose the tiled route explicitly with impl='pallas' (CLI: --impl "
-        "pallas)")
+        "which is not ported yet (ROADMAP.md queue 1 item 5, 'd11/d12 and "
+        "edge culling'); choose the tiled route explicitly with "
+        "impl='pallas' (CLI: --impl pallas)")
 
 
 def _grid_arrays(mesh: Mesh):
@@ -94,7 +95,8 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 on_frames: Optional[Callable[[int, np.ndarray], None]] = None,
                 colfix="auto", device="cuda", impl: str = "auto",
                 binning_quantile: float = 0.995,
-                edge_cull_threshold: Optional[float] = None):
+                edge_cull_threshold: Optional[float] = None,
+                quality: bool = False, patch: bool = False):
     """Render a clip of a grid mesh.
 
     :param mesh: a grid :class:`Mesh` (its tensors move to ``device``).
@@ -107,8 +109,8 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         clamp their kernel groups further by ``tiled.COEFF_BUDGET``).
     :param on_frames: ``(start_index, frames)`` per group, frames (k, H, W, 4)
         uint8; called for group k while group k+1 renders.
-    :param colfix: ``"auto"``, ``None`` or ``1`` (the ported fan widths;
-        scan only).
+    :param colfix: the scan's colfix fan half-width: ``"auto"`` (1, or 3
+        under ``quality``), ``None`` (off) or 0-3.
     :param device: ``"cuda"`` (kernels) or ``"cpu"`` (plain passes).
     :param impl: ``"auto"`` (= the scan where it is ported), ``"scan"``,
         ``"pallas"`` or ``"grid"``.
@@ -116,6 +118,10 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         lossless binning).
     :param edge_cull_threshold: the tiled routes' depth-discontinuity edge
         cull (the scan's is not ported yet).
+    :param quality: the scan's quality tier: dual-column records and a
+        full transposed second pass, merged by depth.
+    :param patch: the scan's patch tier: a transposed second pass only where
+        the first left holes (with ``colfix=3`` the balanced tier).
     :return: the frame count, or the stacked (T, H, W, 4) uint8 frames when
         ``on_frames`` is None.
     """
@@ -137,14 +143,18 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     cuda = device.type == "cuda"
 
     if impl == "scan":
+        if quality and patch:
+            raise ValueError("quality and patch are mutually exclusive "
+                             "(quality already runs the full transposed "
+                             "pass that patch sparsifies)")
         if edge_cull_threshold is not None:
             raise NotImplementedError(
                 "edge culling on the scan is not ported yet (ROADMAP.md "
-                "queue 1, 'd11/d12 and edge culling'); the tiled routes "
-                "(impl='pallas' or 'grid') cull")
+                "queue 1 item 5, 'd11/d12 and edge culling'); the tiled "
+                "routes (impl='pallas' or 'grid') cull")
         if config is None:
             config = raster_scan.suggest_scan_config(
-                n, width, height,
+                n, width, height, quality=quality, patch=patch,
                 **({} if colfix == "auto" else {"colfix": colfix}))
         raster_scan.check_supported(config)
         g = raster_scan.ScanGeometry.of(width, height, n, n, config)

@@ -39,6 +39,10 @@ from depthrenderer_tpu_torch.ops import raster_scan as trs
 
 REPO = Path(__file__).resolve().parent.parent
 
+# One intra-op thread: the suite's worker processes share the cores, and a
+# pool of one thread per core in each of them stalls on these small tensors.
+torch.set_num_threads(1)
+
 # One float32 ulp relative: the bound for values that pass through sin/cos,
 # which XLA and PyTorch round independently (each within an ulp).
 ULP_REL = 2.0 ** -23
@@ -164,6 +168,8 @@ def test_convert_round_trip(checker_texture):
     (1025, 1920, 1080, {"colfix": None}), (1025, 3840, 2160, {}),
     (2049, 1920, 1080, {}), (4097, 3840, 2160, {}),
     (1025, 1920, 1080, {"quality": True}), (33, 128, 96, {"hyps": 1}),
+    (1025, 1920, 1080, {"patch": True}),
+    (1025, 1920, 1080, {"quality": True, "colfix": 2}),
 ])
 def test_suggest_scan_config_equals_jax(grid_n, width, height, kw):
     j = jrs.suggest_scan_config(grid_n, width, height, **dict(kw))
@@ -180,12 +186,14 @@ def test_scan_supported_is_standard_variant():
     with pytest.raises(NotImplementedError, match="big_grid"):
         trender._auto_impl(2049)
     assert trender._auto_impl(1025) == "scan"
-    for bad in [dict(big_grid=True, pack_xy=False), dict(row_edge=True),
-                dict(dual_col=True), dict(patch=True), dict(colfix=0),
-                dict(colfix=3),
-                dict(edge_cull_threshold=0.5)]:
+    for bad in [dict(big_grid=True, pack_xy=False),
+                dict(edge_cull_threshold=0.5),
+                dict(mxu_march=True, hyps=1)]:
         with pytest.raises(NotImplementedError):
             trs.check_supported(trs.ScanConfig(**bad))
+    for ported in [dict(row_edge=True, dual_col=True), dict(patch=True),
+                   dict(colfix=0), dict(colfix=2), dict(colfix=3)]:
+        trs.check_supported(trs.ScanConfig(**ported))
 
 
 def test_pack_texture_and_unpack_match_jax(checker_texture):
@@ -339,14 +347,73 @@ def test_render_clip_cuda_raises_without_a_card(checker_texture):
 
 @pytest.mark.parametrize("flags", [
     ["--mode", "wireframe"], ["--impl", "scan", "--edge-cull", "0.5"],
-    ["--quality"], ["--patch"],
     ["--edge-cull", "0.5"], ["--container", "mp4"],
-    ["--overlay-noise", "32", "16"], ["--colfix", "0"], ["--colfix", "2"],
-    ["--colfix", "3"],
+    ["--overlay-noise", "32", "16"],
 ])
 def test_unported_cli_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["c.png", "d.png", "--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--quality"], ["--patch"], ["--colfix", "0"], ["--colfix", "2"],
+    ["--colfix", "3"],
+])
+def test_fidelity_cli_options_render(flags, tmp_path):
+    cp, dp = _png_pair(tmp_path)
+    out = tmp_path / "out"
+    assert tcli.main([str(cp), str(dp), "--device", "cpu", "-mesh-density",
+                      "5", "--width", "128", "--height", "96", "--frames",
+                      "2", "--codec", "DIB ", "-output-path", str(out)]
+                     + flags) == 0
+    assert (out / "sample_frame.png").stat().st_size > 0
+    frames = np.stack(jvideo.read_avi_frames(out / f"{cp.name}.avi"))
+    assert frames.shape == (2, 96, 128, 3)
+    assert (frames.max(axis=-1) > 0).mean() > 0.3
+
+
+@pytest.mark.parametrize("mode", ["texture", "texture_z"])
+def test_march_writes_raster_z_only_for_its_readers(checker_texture, mode):
+    """The single pass's attrs are 4 planes; the raster-z plane comes only
+    where a reader asks for it (the texture_z shade, the attrs merge)."""
+    mesh = tdr.Mesh.from_texture(tdr.Texture(checker_texture), density=4)
+    n, w, h = 17, 64, 48
+    cfg = trs.suggest_scan_config(n, w, h)
+    g = trs.ScanGeometry.of(w, h, n, n, cfg)
+    mvps = tt.matmul(tt.perspective(18.0, w / h),
+                     tt.translation(dz=-10.0))[None]
+    prep = trs.prep_scan(mvps, mesh.vertices.reshape(n, n, 3), w, h, cfg)
+    args = (prep.win[0], prep.w0[0], prep.bounds[0])
+    margs = args + (prep.canch[0], prep.mid[0], trs.minv_rows(mvps)[0], g,
+                    cfg)
+    rec = trs.solve_records(*args, g, cfg)
+    raster_z = mode == "texture_z"
+    attrs = trs.march_exact(rec, *margs, raster_z=raster_z)
+    full = trs.march_exact(rec, *margs, raster_z=True)
+    assert attrs.shape == (trs.n_attrs(raster_z), g.hpad, g.wl)
+    assert torch.equal(attrs, full[:attrs.shape[0]])
+    cov = full[3] > 0.5
+    assert cov.float().mean() > 0.3
+    assert bool((full[4][~cov] == np.float32(3.0e38)).all())
+    texq = trs.pack_texture(mesh.texture.image)
+    out = trs.shade(attrs, texq, g, cfg, mode)
+    if raster_z:
+        packed, z = out
+        assert torch.equal(z[cov], full[4][cov])
+    else:
+        packed = out
+    assert torch.equal(packed, trs.shade(full, texq, g, cfg, "texture_z")[0])
+    with pytest.raises(ValueError, match="5 planes"):
+        trs.shade(full[:4], texq, g, cfg, "texture_z")
+
+
+def test_quality_and_patch_are_exclusive(checker_texture):
+    args = tcli.build_parser().parse_args(
+        ["c.png", "d.png", "--device", "cpu", "-mesh-density", "2",
+         "--width", "64", "--height", "48", "--frames", "1", "--quality",
+         "--patch", "--no-video"])
+    with pytest.raises(ValueError, match="exclusive"):
+        tcli.render_scene(checker_texture, np.zeros((48, 64), np.uint8), args)
 
 
 def test_big_grid_density_raises(checker_texture):

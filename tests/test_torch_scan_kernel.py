@@ -94,9 +94,10 @@ def jax_config(**over):
 
 
 @functools.lru_cache(maxsize=None)
-def run_jax(cfg):
+def run_jax(cfg, phases="all"):
     """(frames (T, H, W, 4) uint8, slot-0 records (T, nbands, nrec, 8, CL))
-    from the JAX kernel in interpret mode."""
+    from the JAX kernel in interpret mode. ``phases="solve"`` runs only its
+    solve (a much smaller compile; the frames are then blank)."""
     verts, _, _, mvps = scene()
     vg = verts.reshape(N, N, 3)
     win, w0, bounds, canch, mid, _ = jrs._prep_scan_batched(
@@ -109,7 +110,8 @@ def run_jax(cfg):
     with pltpu.force_tpu_interpret_mode():
         out, dbg = jrs._raster_scan_pallas(
             win, texq, tex.shape[:2], jnp.asarray(rows), w0, bounds, canch,
-            mid, W, H, N, N, cfg, "texture", True, debug_records=True)
+            mid, W, H, N, N, cfg, "texture", True, debug_records=True,
+            phases=phases)
         out = np.asarray(out)
         dbg = np.asarray(dbg)
     return jrs.unpack_raw_frames(out, W, H), dbg[:, :, 0]
@@ -145,11 +147,8 @@ def frame_stats(got, want):
     return psnr(got, want), float((diff > 1).mean()), int((diff > 0).sum())
 
 
-def check_against_jax(cfg):
-    want, dbg = run_jax(cfg)
-    got, recs, prep = run_port(cfg)
-    assert got.shape == want.shape == (2, H, W, 4)
-    # Slot-0 records: copies exact, interpolated values within one ulp.
+def check_records(recs, dbg):
+    """Slot-0 records: copies exact, interpolated values within one ulp."""
     r0 = recs[:, :, 0]
     assert r0.shape == dbg.shape
     np.testing.assert_array_equal(r0[:, :, 2], dbg[:, :, 2])   # basew
@@ -157,6 +156,13 @@ def check_against_jax(cfg):
     ulps = np.abs(r0[:, :, :2].view(np.int32).astype(np.int64)
                   - dbg[:, :, :2].view(np.int32).astype(np.int64))
     assert ulps.max() <= 1
+
+
+def check_against_jax(cfg):
+    want, dbg = run_jax(cfg)
+    got, recs, prep = run_port(cfg)
+    assert got.shape == want.shape == (2, H, W, 4)
+    check_records(recs, dbg)
     p, off, n_diff = frame_stats(got, want)
     print(f"hyps={cfg.hyps} colfix={cfg.colfix}: PSNR {p:.2f} dB, "
           f"{off:.5%} > 1 LSB, {n_diff} pixels differ")
