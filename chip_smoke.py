@@ -32,7 +32,9 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    route, 2 strips as bench.py renders 1080p/d10) at sway frame 0: its row
    anchors and seconds, and the PSNR, the share of pixels off by more than 1
    LSB and the share off by more than 8 LSB (bench.py's flips) of the scan
-   frame and of the tiled frame against it.
+   frame and of the tiled frame against it; the scan frame and the control
+   on 16 evenly spaced rows against the float64 oracle
+   (``ops/raster_reference.rasterize_grid_rows``): shares > 1 and > 8 LSB.
 7. ``tiers``: the scan's fidelity tiers, ``--quality`` and ``--patch
    --colfix 3``. For each, on sway frame 74 at the configs the render path
    derives (``raster_scan.tier_configs``): pass 1, then (patch) the hole
@@ -47,6 +49,24 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    each 2 x frames), render-only and incl.-encode frames/s, and each tier's
    frame 0 against the control beside the default scan's; the phase fails if
    the quality tier's > 8 LSB share is above the default scan's.
+8. ``big_grid``: BASELINE preset 4 (4K at mesh density 12, edge cull 0.25)
+   and the scan kernels' big_grid, edge-cull and wireframe paths. On sway
+   frame 74, each kernel against its twin at the tiers' bars, with times
+   beside twin and bound: the wireframe mode and the edge cull at the
+   default 1080p/d10 config, and the big_grid variant with edge cull at
+   1080p/d11 (a 640-column chunked march). Then a seeded synthetic
+   3840x2160 scene at d12 (4097 x 4097 vertices), frame 0: each kernel's
+   time beside its bound; solve and shade against their twins on the whole
+   frame (records and pixels equal) and the march against its twin on six
+   bands, half of them among those whose blocks open the most chunks of the
+   1024-column chunked march (attrs max abs 0); ``render_clip`` render-only
+   frames/s over 16 frames after one warm-up group with its peak device
+   memory; ``cli.render_scene -mesh-density 12 --width 3840 --height 2160
+   --edge-cull 0.25`` over 16 frames (launch counters set to 0 before, read
+   after: ``solve``, ``march`` and ``shade`` each = frames); and frame 0
+   against ``render_frame_grid_exact`` at 16 strips with the same edge cull,
+   as bench.py renders 4K/d12 (PSNR, shares, holes), then the scan frame
+   and that control on 16 rows against the float64 oracle.
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
@@ -80,6 +100,12 @@ TILED_FRAMES, TILED_RENDER_FRAMES = 32, 64
 TIER_FRAME, TIER_CLI_FRAMES = 74, 32
 TIERS = {"quality": (["--quality"], {"quality": True}),
          "patch": (["--patch", "--colfix", "3"], {"patch": True, "colfix": 3})}
+# The big_grid phase: BASELINE preset 4 (bench.py --preset 4) and the kernel
+# check's 1080p/d11 config.
+BIG_WIDTH, BIG_HEIGHT, BIG_DENSITY, BIG_FRAMES = 3840, 2160, 12, 16
+EDGE_CULL, CHECK_DENSITY, BIG_CONTROL_STRIPS = 0.25, 11, 16
+# Bands of the 4K/d12 march twin, and pixel rows of the float64 oracle.
+MARCH_BANDS, ORACLE_ROWS = 6, 16
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 # The control's strips at 1080p/d10, as bench.py renders it; a "flip" is a
@@ -204,7 +230,9 @@ def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False):
     band flag (sparse bands) the records, the window and the attributes
     read count only the flagged bands' share. The attributes are 4 planes;
     ``with_z`` (the tiers' passes): the march also writes the raster-z
-    plane, and the shade reads it and writes the raster z."""
+    plane, and the shade reads it and writes the raster z. A big_grid
+    block sweeps its whole 128-aligned fetch window (``min(cw + 128,
+    CL)`` columns)."""
     from depthrenderer_tpu_torch.ops import raster_scan as rs
 
     share = 1.0 if bflag is None else float(bflag.float().mean())
@@ -217,7 +245,8 @@ def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False):
     # march window (128 narrow, cw wide, none when skipped): two comparisons
     # each. The exact tests and colfix come on top, uncounted.
     mid = prep.mid[i].long()
-    cols = torch.where(mid >= 0, 128, torch.where(mid == -1, cfg.cw, 0))
+    wide = min(cfg.cw + 128, g.cl) if cfg.big_grid else cfg.cw
+    cols = torch.where(mid >= 0, 128, torch.where(mid == -1, wide, 0))
     if bflag is not None:
         cols = cols.reshape(g.nbands, g.nblk) * bflag.long()[:, None]
     march = (rec + win + nbytes(prep.canch[i], prep.mid[i]) + ints + attrs,
@@ -332,12 +361,13 @@ def scan_phase(scene, dev):
             for k in ms}
 
 
-def cli_args(out_dir, frames, extra=()):
+def cli_args(out_dir, frames, extra=(), density=DENSITY, width=WIDTH,
+             height=HEIGHT):
     from depthrenderer_tpu_torch import cli
 
     return cli.build_parser().parse_args(
-        ["scene.png", "scene_depth.png", "-mesh-density", str(DENSITY),
-         "--width", str(WIDTH), "--height", str(HEIGHT), "--frames",
+        ["scene.png", "scene_depth.png", "-mesh-density", str(density),
+         "--width", str(width), "--height", str(height), "--frames",
          str(frames), "-output-path", str(out_dir), *extra])
 
 
@@ -349,14 +379,14 @@ def clip_views(frames, fps=60.0):
         animation.default_sway().batch(animation.frame_times(frames, fps)))
 
 
-def smoke_scene(colour, depth, dev):
-    """The scene as the CLI builds it (mesh density ``DENSITY``, depth
+def smoke_scene(colour, depth, dev, density=DENSITY):
+    """The scene as the CLI builds it (mesh density ``density``, depth
     displacement 4, fov_y 18) -> ``(mesh, projection, vgrid, uvgrid,
     texture)``, the grids and the texture on ``dev``."""
     from depthrenderer_tpu_torch.scene import Camera, Mesh, Texture
 
     mesh = Mesh.from_texture(Texture(colour), depth_map=depth,
-                             density=DENSITY)
+                             density=density)
     mesh.vertices[:, 2] *= 4.0
     n = int(round(len(mesh.vertices) ** 0.5))
     projection = Camera((colour.shape[1], colour.shape[0]),
@@ -366,18 +396,19 @@ def smoke_scene(colour, depth, dev):
             mesh.texture.image.to(dev))
 
 
-def render_fps(mesh, projection, frames, warm, **kw):
+def render_fps(mesh, projection, frames, warm, width=WIDTH, height=HEIGHT,
+               **kw):
     """Render-only frames/s of ``render_clip`` (frames reach the host,
     nothing is encoded) after one warm-up group: the first call at these
     shapes pins its host buffers and grows the allocator."""
     from depthrenderer_tpu_torch.render import render_clip
 
     views = clip_views(frames)
-    render_clip(mesh, projection, views[:warm], WIDTH, HEIGHT,
+    render_clip(mesh, projection, views[:warm], width, height,
                 on_frames=lambda s, f: None, device="cuda", **kw)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    render_clip(mesh, projection, views, WIDTH, HEIGHT,
+    render_clip(mesh, projection, views, width, height,
                 on_frames=lambda s, f: None, device="cuda", **kw)
     torch.cuda.synchronize()
     return frames / (time.perf_counter() - t0)
@@ -563,7 +594,9 @@ def control_phase(scene, tiled_cfg, dev):
     phase("control", frame=0, row_anchors=cfg.row_anchors,
           window=f"{cfg.window_rows}x{cfg.window_cols}",
           strips=stats["strips"], seconds=f"{seconds:.2f}",
-          peak_gib=f"{peak:.2f}", covered_share=f"{covered:.4f}", **fields)
+          peak_gib=f"{peak:.2f}", covered_share=f"{covered:.4f}", **fields,
+          **oracle_fidelity(mvps[0], vgrid, uvgrid, texture, WIDTH, HEIGHT,
+                            {"scan": scan, "control": control}))
     return control, fid["scan"]
 
 
@@ -577,14 +610,15 @@ def timed_ms(fn):
 
 
 def tier_pass(label, cfg, mvp, vgrid, texture, width, height, dev,
-              gates=None):
+              gates=None, mode="texture_z"):
     """One pass of a tier on one frame, each kernel against its plain twin
     -> (kernel (packed, z), plain-chain (packed, z), phase fields).
 
     The twins run on the kernels' inputs (the march twin on the kernel's
     records, the shade twin on the kernel's attrs); the plain chain's frame
     shades the march twin's attrs. ``gates`` (bflag, blkflag) makes the pass
-    sparse."""
+    sparse. ``mode`` ``texture`` or ``wireframe`` checks a single pass
+    instead (4 attribute planes, no raster z: z is None)."""
     from depthrenderer_tpu_torch.ops import raster_scan as rs
 
     g = rs.ScanGeometry.of(width, height, vgrid.shape[0], vgrid.shape[1],
@@ -611,37 +645,45 @@ def tier_pass(label, cfg, mvp, vgrid, texture, width, height, dev,
     del rec_p
     margs = (prep.win[0], prep.w0[0], prep.bounds[0], prep.canch[0],
              prep.mid[0], minv[0], g, cfg, bflag)
-    att = rs.march_exact(rec, *margs, raster_z=True)
+    with_z = mode == "texture_z"
+    mkw = {"raster_z": with_z, "wire": mode == "wireframe"}
+    att = rs.march_exact(rec, *margs, **mkw)
     att_p, march_plain = timed_ms(
-        lambda: rs.march_exact_plain(rec, *margs, raster_z=True))
+        lambda: rs.march_exact_plain(rec, *margs, **mkw))
     march_err = float((att - att_p).abs().max())
     if march_err != 0.0:
         raise AssertionError(f"{label}: march attrs differ from the twin's "
                              f"by {march_err}")
-    out = rs.shade(att, texq, g, cfg, "texture_z", bflag)
-    sh_p, shade_plain = timed_ms(lambda: rs.shade_plain(
-        att, texq, *texq.shape, "texture_z", bflag))
-    if not (torch.equal(out[0], sh_p[0]) and torch.equal(out[1], sh_p[1])):
+
+    def pair(o):   # (packed, raster z or None)
+        return o if with_z else (o, None)
+
+    out = pair(rs.shade(att, texq, g, cfg, mode, bflag))
+    sh_p, shade_plain = timed_ms(lambda: pair(rs.shade_plain(
+        att, texq, *texq.shape, mode, bflag)))
+    if not (torch.equal(out[0], sh_p[0])
+            and (not with_z or torch.equal(out[1], sh_p[1]))):
         raise AssertionError(f"{label}: shade outputs differ from the twin's")
-    chain_p = rs.shade_plain(att_p, texq, *texq.shape, "texture_z", bflag)
+    chain_p = pair(rs.shade_plain(att_p, texq, *texq.shape, mode, bflag))
     _, same, more = frame_agreement(out[0], chain_p[0])
-    z_same = float((out[1] == chain_p[1]).float().mean())
+    z_same = (float((out[1] == chain_p[1]).float().mean()) if with_z
+              else 1.0)
     if same < 0.999 or more > 0.001 * out[0].numel() or z_same < 0.999:
         raise AssertionError(f"{label}: kernel chain against plain chain: "
                              f"{same:.6f} identical, {more} > 1 LSB, "
                              f"raster z {z_same:.6f} equal")
     ms = {"solve": cuda_ms(lambda: rs.solve_records(*args, g, cfg, bflag),
                            10),
-          "march": cuda_ms(lambda: rs.march_exact(rec, *margs,
-                                                  raster_z=True), 10),
-          "shade": cuda_ms(lambda: rs.shade(att, texq, g, cfg, "texture_z",
-                                            bflag), 20)}
+          "march": cuda_ms(lambda: rs.march_exact(rec, *margs, **mkw), 10),
+          "shade": cuda_ms(lambda: rs.shade(att, texq, g, cfg, mode, bflag),
+                           20)}
     plain = {"solve": solve_plain, "march": march_plain,
              "shade": shade_plain}
     bounds = {k: bound(*v) for k, v in scan_bounds(
-        prep, 0, g, cfg, texq, bflag, with_z=True).items()}
+        prep, 0, g, cfg, texq, bflag, with_z=with_z).items()}
     fields = {"cfg": f"sr{cfg.sr}/hyps{cfg.hyps}/colfix{cfg.colfix}/"
-                     f"cw{cfg.cw}/dual{int(cfg.dual_col)}",
+                     f"cw{cfg.cw}/dual{int(cfg.dual_col)}/"
+                     f"big{int(cfg.big_grid)}/cull{cfg.edge_cull_threshold}",
               "identical_share": f"{same:.6f}",
               "z_equal_share": f"{z_same:.6f}",
               **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
@@ -747,6 +789,240 @@ def tiers_phase(colour, depth, scene, control, scan_fid, dev, tmp):
             f"against the control, the default scan {scan_fid[2]:.6f}")
 
 
+def big_grid_checks(colour, depth, scene, dev):
+    """Phase 8, the kernel checks on sway frame 74: the wireframe mode and
+    the edge cull (0.25) at the default 1080p/d10 config, and the big_grid
+    variant with edge cull at 1080p/d11, each kernel against its twin."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps
+
+    views = clip_views(300)[TIER_FRAME:TIER_FRAME + 1]
+    mesh, projection, vgrid, _, texture = scene
+    cfg = rs.suggest_scan_config(vgrid.shape[0], WIDTH, HEIGHT)
+    mvp = clip_mvps(projection, views, mesh.transform)
+    _, _, fields = tier_pass("wireframe", cfg, mvp, vgrid, texture, WIDTH,
+                             HEIGHT, dev, mode="wireframe")
+    phase("big_grid_wireframe_vs_plain", frame=TIER_FRAME, **fields)
+    # The edge cull in the standard variant (what --edge-cull runs at d10).
+    culled = rs.suggest_scan_config(vgrid.shape[0], WIDTH, HEIGHT,
+                                    edge_cull_threshold=EDGE_CULL)
+    _, _, fields = tier_pass("edge_cull", culled, mvp, vgrid, texture, WIDTH,
+                             HEIGHT, dev, mode="texture")
+    phase("edge_cull_vs_plain", frame=TIER_FRAME, **fields)
+
+    mesh11, projection11, vgrid11, _, texture11 = smoke_scene(
+        colour, depth, dev, CHECK_DENSITY)
+    cfg11 = rs.suggest_scan_config(vgrid11.shape[0], WIDTH, HEIGHT,
+                                   edge_cull_threshold=EDGE_CULL)
+    if not cfg11.big_grid:
+        raise AssertionError(f"d{CHECK_DENSITY} at 1080p resolved to {cfg11}")
+    mvp11 = clip_mvps(projection11, views, mesh11.transform)
+    torch.cuda.reset_peak_memory_stats()
+    _, _, fields = tier_pass("big_grid", cfg11, mvp11, vgrid11, texture11,
+                             WIDTH, HEIGHT, dev, mode="texture")
+    phase("big_grid_kernels_vs_plain", frame=TIER_FRAME,
+          density=CHECK_DENSITY, size=f"{WIDTH}x{HEIGHT}",
+          rmax=cfg11.rmax, fetch_cols=min(cfg11.cw + 128,
+                                          -(-vgrid11.shape[1] // 128) * 128),
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          **fields)
+
+
+def open_chunks(rec, canch, g, cfg):
+    """Per band, the most 128-column chunks that the chunked march's block
+    gate opens for slot 0 in one of its blocks (the gate of
+    ``raster_scan._march_bands``' ``sweep_chunked``, on the records)."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    nch = min(cfg.cw + 128, g.cl) // 128
+    sx = rec[:, 0, 0]                                  # (nbands, 8, CL)
+    lo = canch.long() * 8 // 128 * 128                 # (nblk,)
+    qx0 = torch.arange(g.nblk, device=rec.device)[:, None] * 128.0 + 0.5
+    count = torch.zeros((g.nbands, g.nblk), dtype=torch.int64,
+                        device=rec.device)
+    for ch in range(nch):
+        cols = (lo[:, None] + ch * 128
+                + torch.arange(136 if ch < nch - 1 else 128,
+                               device=rec.device))
+        sxs = sx[:, :, cols]                           # (nbands, 8, nblk, L)
+        near = (sxs <= qx0 + 127.0).any(3).any(1)
+        real = ((sxs < rs._FAR * 0.5) & (sxs >= qx0 - 64.0)).any(3).any(1)
+        count += near & real
+    return count.amax(1)
+
+
+def big_grid_twins(prep, rec, att, margs, texq, g, cfg):
+    """Phase 8 at preset 4, frame 0: solve and shade against their twins on
+    the whole frame (records equal, packed pixels equal); the march twin on
+    a few bands (the widest-gated, and some spread over the covered ones),
+    its attrs equal to the kernel's there -> phase fields."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    t0 = time.perf_counter()
+    args = margs[:3]
+    rec_p, solve_plain = timed_ms(lambda: rs.solve_records_plain(*args, g,
+                                                                  cfg))
+    if not torch.equal(rec, rec_p):
+        raise AssertionError(f"4K/d12: {int((rec != rec_p).sum())} record "
+                             "values differ between the solve kernel and "
+                             "its twin")
+    del rec_p
+    out_k = rs.shade(att, texq, g, cfg, "texture")
+    out_p, shade_plain = timed_ms(lambda: rs.shade_plain(
+        att, texq, *texq.shape, "texture"))
+    if not torch.equal(out_k, out_p):
+        raise AssertionError("4K/d12: shade output differs from the twin's")
+    counts = open_chunks(rec, prep.canch[0], g, cfg)
+    full = torch.nonzero(counts == counts.max()).squeeze(1)
+    live = torch.nonzero(counts > 0).squeeze(1)
+    pick = sorted({int(full[k]) for k in torch.linspace(
+        0, len(full) - 1, MARCH_BANDS // 2).round().long()}
+        | {int(live[k]) for k in torch.linspace(
+            0, len(live) - 1, MARCH_BANDS - MARCH_BANDS // 2).round().long()})
+    bflag = torch.zeros(g.nbands, dtype=torch.int32, device=rec.device)
+    bflag[pick] = 1
+    att_p, march_plain = timed_ms(lambda: rs.march_exact_plain(
+        rec, *margs, bflag))
+    rows = bflag.bool().repeat_interleave(8)
+    march_err = float((att[:, rows] - att_p[:, rows]).abs().max())
+    if march_err != 0.0:
+        raise AssertionError(f"4K/d12: march attrs differ from the twin's by "
+                             f"{march_err} on bands {pick}")
+    return {"records_equal": True, "shade_equal": True,
+            "march_bands": ",".join(map(str, pick)),
+            "band_open_chunks": ",".join(str(int(counts[b])) for b in pick),
+            "most_open_chunks": int(counts.max()),
+            "bands_with_most": len(full), "march_max_abs": march_err,
+            "solve_plain_ms": f"{solve_plain:.1f}",
+            "march_plain_ms": f"{march_plain:.1f}",
+            "shade_plain_ms": f"{shade_plain:.1f}",
+            "seconds": f"{time.perf_counter() - t0:.1f}"}
+
+
+def oracle_fidelity(mvp, vgrid, uvgrid, texture, width, height, frames,
+                    cull=None):
+    """Each (H, W, 4) frame on ORACLE_ROWS evenly spaced rows against the
+    float64 oracle (``raster_reference.rasterize_grid_rows``) -> phase
+    fields: > 1 LSB and > 8 LSB shares, and the oracle's seconds."""
+    from depthrenderer_tpu_torch.ops import raster_reference as ref
+
+    rows = np.linspace(0, height - 1, ORACLE_ROWS).round().astype(int)
+    oracle, ms = timed_ms(lambda: ref.rasterize_grid_rows(
+        mvp.to(vgrid.device), vgrid, uvgrid, texture, width, height,
+        rows.tolist(), cull))
+    oracle = oracle.cpu().numpy()
+    if not 0.3 < float((oracle[..., :3].max(-1) > 0).mean()) <= 1.0:
+        raise AssertionError("the oracle's rows are mostly uncovered")
+    fields = {"oracle_rows": len(rows), "oracle_s": f"{ms / 1e3:.1f}"}
+    for name, frame in frames.items():
+        _, off, flip = control_fidelity(frame[rows], oracle)
+        fields[f"{name}_vs_oracle_off_more"] = f"{off:.6f}"
+        fields[f"{name}_vs_oracle_flip"] = f"{flip:.6f}"
+    return fields
+
+
+def big_grid_path(dev, tmp):
+    """Phase 8 at BASELINE preset 4 (4K/d12, edge cull 0.25): kernel times
+    on frame 0 beside their bounds and each kernel against its twin there,
+    render-only frames/s and peak memory, the CLI run with its launch
+    counts, and frame 0 against the control and the float64 oracle."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps
+    from depthrenderer_tpu_torch.synthetic import synthetic_scene
+
+    colour, depth = synthetic_scene(h=BIG_HEIGHT, w=BIG_WIDTH)
+    t0 = time.perf_counter()
+    mesh, projection, vgrid, uvgrid, texture = smoke_scene(colour, depth, dev,
+                                                           BIG_DENSITY)
+    mesh_s = time.perf_counter() - t0
+    n = vgrid.shape[0]
+    cfg = rs.suggest_scan_config(n, BIG_WIDTH, BIG_HEIGHT,
+                                 edge_cull_threshold=EDGE_CULL)
+    if not (cfg.big_grid and rs.scan_supported(n, cfg)):
+        raise AssertionError(f"4K/d12 resolved to {cfg}")
+    g = rs.ScanGeometry.of(BIG_WIDTH, BIG_HEIGHT, n, n, cfg)
+    mvp = clip_mvps(projection, clip_views(1), mesh.transform)
+    minv = rs.minv_rows(mvp)
+    texq = rs.pack_texture(texture)
+    torch.cuda.reset_peak_memory_stats()
+    prep = rs.prep_scan(mvp.to(dev), vgrid, BIG_WIDTH, BIG_HEIGHT, cfg)
+    args = (prep.win[0], prep.w0[0], prep.bounds[0])
+    rec = rs.solve_records(*args, g, cfg)
+    margs = args + (prep.canch[0], prep.mid[0], minv[0], g, cfg)
+    att = rs.march_exact(rec, *margs)
+    ms = {"solve": cuda_ms(lambda: rs.solve_records(*args, g, cfg), 5),
+          "march": cuda_ms(lambda: rs.march_exact(rec, *margs), 5),
+          "shade": cuda_ms(lambda: rs.shade(att, texq, g, cfg, "texture"),
+                           20)}
+    bounds = {k: bound(*v) for k, v in
+              scan_bounds(prep, 0, g, cfg, texq).items()}
+    covered = float(att[3, :BIG_HEIGHT, :BIG_WIDTH].mean())
+    phase("big_grid_kernel_times", size=f"{BIG_WIDTH}x{BIG_HEIGHT}",
+          density=BIG_DENSITY, edge_cull=EDGE_CULL,
+          cfg=f"rmax{cfg.rmax}/cw{cfg.cw}/sr{cfg.sr}/colfix{cfg.colfix}",
+          records_gb=f"{nbytes(rec) / 1e9:.3f}",
+          covered_share=f"{covered:.4f}",
+          **{f"{k}_ms": f"{v:.4f}" for k, v in ms.items()},
+          **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()},
+          **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
+          mesh_s=f"{mesh_s:.1f}")
+    if not 0.3 < covered <= 1.0:
+        raise AssertionError(f"4K/d12 frame 0 covered share {covered:.3f}")
+    phase("big_grid_kernels_vs_plain_4k", frame=0,
+          **big_grid_twins(prep, rec, att, margs, texq, g, cfg))
+    del prep, rec, att
+
+    torch.cuda.reset_peak_memory_stats()
+    fps = render_fps(mesh, projection, BIG_FRAMES, 16, BIG_WIDTH, BIG_HEIGHT,
+                     edge_cull_threshold=EDGE_CULL)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rs.reset_launch_counts()
+    result = cli.render_scene(colour, depth, cli_args(
+        tmp / "preset4", BIG_FRAMES, ["--edge-cull", str(EDGE_CULL)],
+        BIG_DENSITY, BIG_WIDTH, BIG_HEIGHT))
+    launches = dict(rs.LAUNCHES)
+    if launches != {"solve": BIG_FRAMES, "march": BIG_FRAMES,
+                    "shade": BIG_FRAMES}:
+        raise AssertionError(f"preset 4: launches {launches} on the CLI run, "
+                             f"expected {BIG_FRAMES} each")
+    avi, png = check_outputs(result, BIG_FRAMES)
+    phase("big_grid_path", frames=BIG_FRAMES, launches=json.dumps(launches),
+          render_only_fps=f"{fps:.2f}", render_peak_gib=f"{peak:.2f}",
+          incl_encode_fps=f"{BIG_FRAMES / result['seconds']:.2f}",
+          avi_bytes=avi, sample_png_bytes=png)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    control, stats = trg.render_frame_grid_exact(
+        mvp[0].to(dev), vgrid, uvgrid, texture, BIG_WIDTH, BIG_HEIGHT,
+        strips=BIG_CONTROL_STRIPS, edge_cull_threshold=EDGE_CULL,
+        with_stats=True)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    raw, _ = rs.render_frames_scan(mvp, vgrid, uvgrid, texture, BIG_WIDTH,
+                                   BIG_HEIGHT, cfg)
+    frame = rs.unpack_raw_frames(raw.cpu(), BIG_WIDTH, BIG_HEIGHT)[0]
+    fid = control_fidelity(frame, control)
+    # Coverage apart from shading: holes (the control covers, the scan
+    # does not) and the reverse.
+    cov_s, cov_c = (f[..., :3].max(-1) > 0 for f in (frame, control))
+    ccfg = stats["config"]
+    phase("big_grid_control", frame=0, strips=stats["strips"],
+          row_anchors=ccfg.row_anchors,
+          window=f"{ccfg.window_rows}x{ccfg.window_cols}",
+          seconds=f"{seconds:.2f}", peak_gib=f"{peak:.2f}",
+          psnr_db=f"{fid[0]:.2f}", off_more_share=f"{fid[1]:.6f}",
+          flip_share=f"{fid[2]:.6f}",
+          hole_share=f"{float((cov_c & ~cov_s).mean()):.6f}",
+          scan_only_share=f"{float((cov_s & ~cov_c).mean()):.6f}",
+          **oracle_fidelity(mvp[0], vgrid, uvgrid, texture, BIG_WIDTH,
+                            BIG_HEIGHT, {"scan": frame, "control": control},
+                            EDGE_CULL))
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=300,
@@ -802,6 +1078,12 @@ def main(argv=None):
         t0 = time.perf_counter()
         tiers_phase(colour, depth, scene, control, scan_fid, dev, tmp)
         seconds["tiers"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big_grid_checks(colour, depth, scene, dev)
+        seconds["big_grid_checks"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        big_grid_path(dev, tmp)
+        seconds["big_grid_path"] = time.perf_counter() - t0
     phase("seconds", **{k: f"{v:.1f}" for k, v in seconds.items()},
           total=f"{time.perf_counter() - t_all:.1f}")
 

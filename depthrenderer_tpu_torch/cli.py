@@ -26,8 +26,8 @@ from pathlib import Path
 
 from . import animation as anim_mod
 from . import io as dio
-from . import transforms
-from .render import render_clip, resolve_device
+from . import meshgen, transforms
+from .render import _auto_impl, render_clip, resolve_device
 from .scene import Camera, Mesh, Texture
 from .utils import log
 from .writers import AsyncImageWriter, AsyncVideoWriter
@@ -72,7 +72,8 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
     p.add_argument("--mode", choices=("texture", "debug_z", "wireframe"),
                    default="texture",
                    help="Shading mode (debug_z = the reference's debug "
-                        "shader; wireframe on the tiled routes only).")
+                        "shader; wireframe = the triangles' edge bands, "
+                        "not with --quality).")
     p.add_argument("--codec", choices=("MJPG", "DIB "), default="MJPG",
                    help="AVI codec: MJPG (compact) or 'DIB ' (uncompressed).")
     p.add_argument("--container", choices=("avi", "mp4"), default="avi",
@@ -87,7 +88,7 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
                         "(default 0.995); the scan does not use it.")
     p.add_argument("--edge-cull", type=float, default=None, dest="edge_cull",
                    help="Cull triangles whose model-z spread exceeds this "
-                        "(tiled routes; not ported yet on the scan).")
+                        "(every route; BASELINE preset 4 uses 0.25).")
     p.add_argument("--impl", choices=("auto", "grid", "pallas", "scan"),
                    default="auto",
                    help="Rasteriser: auto = scan; pallas = the tiled route "
@@ -128,13 +129,10 @@ def check_ported(args):
     implement; none of them falls back to another path."""
     where = "ROADMAP.md queue 1"
     unported = []
-    scan = args.impl in ("auto", "scan")
-    if scan and args.edge_cull is not None:
-        unported.append(f"--edge-cull on the scan ({where} 'd11/d12 and "
-                        "edge culling'; --impl pallas|grid cull)")
-    if scan and args.mode == "wireframe":
-        unported.append(f"--mode wireframe on the scan ({where} 'the rest "
-                        "of the default path'; --impl pallas|grid shade it)")
+    if (args.impl in ("auto", "scan") and args.quality
+            and args.mode == "wireframe"):
+        unported.append(f"--mode wireframe with --quality ({where} item 5; "
+                        "the single scan pass shades it)")
     if args.container == "mp4":
         unported.append(f"--container mp4 ({where} 'MP4 output')")
     if args.overlay_noise:
@@ -154,19 +152,17 @@ def render_scene(colour, depth, args):
     """
     check_ported(args)
     device = resolve_device(args.device)
+    height, width = colour.shape[:2]
+    out_w = args.width or width
+    out_h = args.height or height
+    if args.impl in ("auto", "scan") and args.mesh_density >= 0:
+        # A grid past the scan's budget raises before it is meshed.
+        _auto_impl(meshgen.grid_vertex_count(args.mesh_density), out_w, out_h)
     texture = Texture(colour)
     mesh = Mesh.from_texture(texture, depth_map=depth,
                              density=args.mesh_density, debug=True)
     mesh.vertices[:, 2] *= args.displacement_factor
-    if args.impl in ("auto", "scan") and mesh.grid_density >= 11:
-        raise NotImplementedError(
-            f"-mesh-density {mesh.grid_density} needs the big_grid scan "
-            "variant (ROADMAP.md queue 1 item 5, 'd11/d12 and edge "
-            "culling'); --impl pallas renders it through the tiled route")
 
-    height, width = colour.shape[:2]
-    out_w = args.width or width
-    out_h = args.height or height
     camera = Camera(window_size=(width, height), fov_y=args.fov_y)
     camera_position = transforms.translation(dz=-10.0)
     log(f"Projection:\n{camera.projection}")

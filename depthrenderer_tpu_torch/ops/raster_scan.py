@@ -1,26 +1,36 @@
 """The column-crossing scan rasteriser for grid meshes, on PyTorch and CUDA.
 
-Counterpart of ``depthrenderer_tpu/ops/raster_scan.py`` (standard variant,
-``texture``/``debug_z``/``texture_z`` modes, raw packed-RGBA output, and the
-fidelity tiers built on it). For each pixel it finds the grid cell whose
-projected micro-triangle covers it:
+Counterpart of ``depthrenderer_tpu/ops/raster_scan.py`` (the standard and
+``big_grid`` variants, in-kernel edge culling, ``texture``/``debug_z``/
+``wireframe``/``texture_z`` modes, raw packed-RGBA output, and the fidelity
+tiers built on it). For each pixel it finds the grid cell whose projected
+micro-triangle covers it:
 
 1. **prep** (:func:`prep_scan`, plain PyTorch): project the grid, then derive
-   the per-band window origin ``w0``, the per-(band, 128-column chunk) scan
-   rows ``bounds`` (``kb | ke << 12 | multi << 24``), the per-block march
-   anchors ``canch`` and the narrow-march offsets ``mid``. Its integers equal
-   the JAX package's exactly.
+   the per-(band, 128-column chunk) row window and scan rows ``bounds``, the
+   per-block march anchors ``canch`` and the narrow-march offsets ``mid``.
+   The standard variant shares one window origin ``w0`` per band (``bounds``
+   = ``kb | ke << 12 | multi << 24``); ``big_grid`` (d11/d12) gives every
+   chunk its own (``bounds`` = ``w0c / 8 | kb << 10 | ke << 19 | multi <<
+   28``, ``w0`` zero, ``mid`` -1). Its integers equal the JAX package's
+   exactly.
 2. **solve** (:func:`solve_records`): per (band, scanline, grid column), the
    first ``nbr`` rows where the column polyline crosses the scanline become
    records: crossing x and z, bracket row, and ``sr`` strip rows of
    (sx, sy, z), with ``dual_col`` also the right column's (sx, sy, z) at the
-   same rows.
+   same rows. ``big_grid`` records hold global bracket rows.
 3. **march** (:func:`march_exact`): per pixel, the march picks the records
    whose crossing pair brackets the pixel (top ``hyps`` by crossing depth),
    the exact edge tests run on the strip cells, and the colfix fan re-tests
    every scanned row around each slot's top-1 column where the block still
    has holes (at K >= 2 the inner fan first, then the outer cells where
-   holes remain). Depth ties go to the lowest triangle id.
+   holes remain). Depth ties go to the lowest triangle id. ``big_grid``
+   marches the whole 128-aligned fetch window; a window of 4 or more
+   128-column chunks marches chunk by chunk behind the JAX kernel's block
+   gate. ``edge_cull_threshold`` drops cells whose selected triangle's
+   corner model-z spread exceeds it; ``wireframe`` keeps the covered pixels
+   whose winner's least barycentric weight is within
+   ``common.WIREFRAME_EDGE_THRESHOLD``.
 4. **shade** (:func:`shade`): bilinear RGBA8 sampling into packed uint32
    pixels, R in the low byte; ``texture_z`` also writes the raster depth.
 
@@ -47,10 +57,16 @@ value, and the tests count the pixels where that differs):
   block: texture taps read the whole texture, clamped to its edge;
 * the colfix fan's two-subtable column window (``NS2``): fan columns anywhere
   in the fetch window are tested, and the fan's row bounds are the union over
-  every 128-column chunk its corners land in;
+  every 128-column chunk its corners land in (``big_grid``: each corner's
+  cells are also held to its own chunk's rows, as in the JAX kernel);
 * the record fetch's two-subtable window, which the JAX kernel uses when the
   fetch window is 4 or more 128-column subtables (``cw = 384``: the
-  transposed tier pass at 1080p): every fetch reads its own column;
+  transposed tier pass at 1080p; ``big_grid`` at d11/d12): every fetch reads
+  its own column;
+* the ``big_grid`` colfix fan's ``rmax``-row window at a shared origin
+  ``g0``: rows past ``g0 + rmax`` are tested, and the window's last row's
+  bottom corners are its true next row, not a re-read of its last 8-row
+  block's first;
 * the ``pack_xy`` 16+16-bit strip coding: strips are stored as float32.
   ``ScanConfig.pack_xy`` is accepted and has no effect.
 
@@ -100,9 +116,14 @@ class ScanConfig:
     :param row_edge: the quality tier (a transposed second pass).
     :param patch: the patch tier (a sparse transposed second pass).
 
-    ``edge_cull_threshold``, ``big_grid``, ``mxu_march`` and
-    ``tex_rows``/``tex_cols`` are kept so a JAX config converts one to one;
-    the port raises ``NotImplementedError`` for the first three.
+    :param big_grid: the large-grid variant (d11/d12): a row window per
+        128-column chunk, global bracket rows.
+    :param edge_cull_threshold: cull cells whose selected triangle's corner
+        model-z spread exceeds this (None = off).
+
+    ``mxu_march`` and ``tex_rows``/``tex_cols`` are kept so a JAX config
+    converts one to one; the port raises ``NotImplementedError`` for
+    ``mxu_march``.
     """
 
     rmax: int = 320
@@ -176,11 +197,12 @@ def _vmem_budget_ok(grid_n: int, cfg: ScanConfig) -> bool:
 
 
 def scan_supported(grid_n: int, config: ScanConfig | None = None) -> bool:
-    """Whether the port renders this grid: the standard variant, i.e. any
-    config that does not resolve to ``big_grid`` (d >= 11 at 1080p)."""
+    """Whether the scan renders this grid: the JAX package's budget rule, met
+    by the standard variant through d10 and by ``big_grid`` through d12
+    (4097 vertices a side)."""
     cfg = config if config is not None else suggest_scan_config(grid_n, 1920,
                                                                 1080)
-    return not cfg.big_grid
+    return _vmem_budget_ok(grid_n, cfg)
 
 
 def suggest_scan_config(grid_n: int, width: int, height: int,
@@ -245,15 +267,7 @@ def suggest_scan_config(grid_n: int, width: int, height: int,
 
 
 def check_supported(config: ScanConfig):
-    """Raise ``NotImplementedError`` for a config outside the ported slice."""
-    unported = [name for name, on in (
-        ("big_grid", config.big_grid),
-        ("edge_cull_threshold", config.edge_cull_threshold is not None),
-    ) if on]
-    if unported:
-        raise NotImplementedError(
-            f"scan config {', '.join(unported)} is not ported yet "
-            "(ROADMAP.md queue 1 item 5, 'd11/d12 and edge culling')")
+    """Raise ``NotImplementedError`` for a config the port does not run."""
     if config.mxu_march:
         raise NotImplementedError(
             "scan config mxu_march is not ported (ROADMAP.md queue 1 item 8: "
@@ -375,10 +389,14 @@ class ScanPrep(NamedTuple):
     """Per-frame inputs of the three passes (leading dim T).
 
     ``win`` (T, 3, RPAD, CL) projected sx, sy, z, edge-padded; ``w0``
-    (T, nbands) window origin in 8-row units; ``bounds`` (T, nbands *
-    nchunks) packed ``kb | ke << 12 | multi << 24``, window-relative;
-    ``canch`` (T, nblocks) march anchors in 8-column units; ``mid``
-    (T, nbands * nblocks) narrow-march offsets (-1 wide, -2 no candidates);
+    (T, nbands) the band's window origin in 8-row units (0 in ``big_grid``);
+    ``bounds`` (T, nbands * nchunks) each chunk's scan rows [kb, ke) relative
+    to its window origin and its multi-crossing bit, packed ``kb | ke << 12 |
+    multi << 24`` (standard: the band's window), or ``big_grid``'s ``w0c / 8
+    | kb << 10 | ke << 19 | multi << 28`` (the chunk's own window at global
+    row ``w0c``; see :func:`unpack_bounds`); ``canch`` (T, nblocks) march
+    anchors in 8-column units; ``mid`` (T, nbands * nblocks) narrow-march
+    offsets (-1 wide, -2 no candidates; -1 everywhere in ``big_grid``);
     ``overflow_rows`` (T,) hull rows clipped by ``rmax``.
     """
 
@@ -394,10 +412,6 @@ def prep_scan(mvps, vertex_grid, width: int, height: int,
               config: ScanConfig) -> ScanPrep:
     """Project the grid for each MVP and derive the passes' scalars
     (the JAX package's ``_prep_scan_impl``, batched over frames)."""
-    if config.big_grid:
-        raise NotImplementedError(
-            "the big_grid scan variant is not ported yet (ROADMAP.md queue "
-            "1 item 5, 'd11/d12 and edge culling')")
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device
     mvps = torch.as_tensor(mvps, dtype=_F32, device=dev)
@@ -486,11 +500,20 @@ def prep_scan(mvps, vertex_grid, width: int, height: int,
                 & (lo_b[:, None] < qt4) & (hi_b[:, None] >= qb4))
         return cond.any(dim=2).to(torch.int64)
 
-    r_lo_band = torch.where(empty, big, r_lo).amin(dim=2)
-    r_lo_band = torch.where(r_lo_band >= big, 0, r_lo_band)
-    w0 = torch.clamp(r_lo_band - (config.off + 3), 0, max(RPAD - config.rmax, 0))
-    w0 = (w0 // 8) * 8                                       # (T, nbands)
-    w0c = w0[:, :, None]
+    if config.big_grid:
+        # Each chunk's own window, 8-row aligned, starting off + 3 rows above
+        # its first hull row; the band-level origin is unused.
+        w0c = torch.clamp(r_lo - (config.off + 3), 0,
+                          max(RPAD - config.rmax, 0))
+        w0c = (w0c // 8) * 8                                 # (T, nb, nch)
+        w0 = torch.zeros((T, nbands), dtype=w0c.dtype, device=dev)
+    else:
+        r_lo_band = torch.where(empty, big, r_lo).amin(dim=2)
+        r_lo_band = torch.where(r_lo_band >= big, 0, r_lo_band)
+        w0 = torch.clamp(r_lo_band - (config.off + 3), 0,
+                         max(RPAD - config.rmax, 0))
+        w0 = (w0 // 8) * 8                                   # (T, nbands)
+        w0c = w0[:, :, None]
     kb = torch.clamp(r_lo - w0c, 0, ke_cap)
     ke = torch.minimum(r_hi + 1 - w0c,
                        torch.clamp(n_r - 1 - w0c, max=ke_cap))
@@ -500,7 +523,11 @@ def prep_scan(mvps, vertex_grid, width: int, height: int,
     overflow_rows = torch.where(
         empty, 0, torch.clamp((r_hi + 1 - w0c) - ke_cap, min=0)).sum(dim=(1, 2))
     multi = multi_flag(w0c + kb, w0c + ke)
-    bounds = (kb | (ke << 12) | (multi << 24)).to(_I32).reshape(T, -1)
+    if config.big_grid:
+        bounds = (w0c // 8) | (kb << 10) | (ke << 19) | (multi << 28)
+    else:
+        bounds = kb | (ke << 12) | (multi << 24)
+    bounds = bounds.to(_I32).reshape(T, -1)
 
     # March anchors per 128-pixel block from the mean projected column x.
     col_x = _xla_row_mean(sx, dim=1)                         # (T, n_c)
@@ -514,7 +541,8 @@ def prep_scan(mvps, vertex_grid, width: int, height: int,
 
     # Narrow march window per (band, block): candidate pair bases from each
     # column's sx range over the band window (66 px left, 2 px right slack).
-    if config.cw <= 128:
+    # big_grid always marches wide.
+    if config.big_grid or config.cw <= 128:
         mid = torch.full((T, nbands * nblocks), -1, dtype=_I32, device=dev)
     else:
         sxw = win[:, 0]
@@ -567,6 +595,20 @@ def prep_scan(mvps, vertex_grid, width: int, height: int,
     return ScanPrep(win.contiguous(), (w0 // 8).to(_I32), bounds,
                     canch.to(_I32), mid.contiguous(),
                     overflow_rows.to(torch.int64))
+
+
+def unpack_bounds(bounds, w0, g: ScanGeometry, config: ScanConfig):
+    """One frame's packed ``bounds`` -> ``(origin, kb, ke, multi)``, each
+    (nbands, nchunks) int64: the grid row of each chunk's window row 0 (the
+    band's ``w0`` in the standard variant, the chunk's own in ``big_grid``),
+    its scan rows [kb, ke) relative to that origin and its multi-crossing
+    bit."""
+    bnd = bounds.reshape(g.nbands, g.nchunks).to(torch.int64)
+    if config.big_grid:
+        return ((bnd & 0x3FF) * 8, (bnd >> 10) & 0x1FF, (bnd >> 19) & 0x1FF,
+                (bnd >> 28) & 1)
+    origin = (w0.to(torch.int64) * 8)[:, None].expand(g.nbands, g.nchunks)
+    return origin, bnd & 0xFFF, (bnd >> 12) & 0xFFF, (bnd >> 24) & 1
 
 
 def minv_rows(mvps) -> np.ndarray:
@@ -654,9 +696,11 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
 
     For each (band, scanline y, column c) with chunk bounds [kb, ke): the
     first ``nbr`` rows k (only the first one unless the chunk's multi bit is
-    set) with ``sy[k] >= qy > sy[k+1]`` fill slots in row order. A record is
+    set) with ``sy[k] >= qy > sy[k+1]`` fill slots in row order. Rows count
+    from the column's window origin (:func:`unpack_bounds`). A record is
     ``sxc, zc`` (the crossing interpolated at ``frac = (sy[k]-qy) /
-    max(sy[k]-sy[k+1], 1e-12)``), ``basew = k`` and strip rows
+    max(sy[k]-sy[k+1], 1e-12)``), the bracket row ``basew`` (``k``, and in
+    ``big_grid`` the global row ``k + w0c``) and strip rows
     ``k-off .. k-off+sr-1`` of (sx, sy, z); strip rows above the window read
     0. With ``dual_col`` each strip row also holds the right column's
     (sx, sy, z) at the same window row: column c + 1, and for the last
@@ -675,19 +719,21 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
                       device=dev)
     rec[:, :, 0:2] = _FAR
     rec[:, :, 2] = _NOBASE
-    bnd = bounds.reshape(g.nbands, g.nchunks).to(torch.int64)
-    kb_all = (bnd & 0xFFF).repeat_interleave(128, dim=1)         # (nb, CL)
-    ke_all = ((bnd >> 12) & 0xFFF).repeat_interleave(128, dim=1)
-    multi_all = ((bnd >> 24) & 1).repeat_interleave(128, dim=1)
+    origin, kb_c, ke_c, multi_c = (
+        t.repeat_interleave(128, dim=1)                          # (nb, CL)
+        for t in unpack_bounds(bounds, w0, g, config))
+    # Bracket rows count from the chunk's own window in big_grid.
+    kbase = (origin if config.big_grid else torch.zeros_like(origin)).to(_F32)
     kk = torch.arange(R - 1, device=dev)[None, None, :, None]
     yy = torch.arange(8, dtype=_F32, device=dev)
     right = torch.arange(1, CL + 1, device=dev)
     right[-1] = CL - 128
     for b0, b1 in _active_chunks(g.nbands, bflag):
         B = b1 - b0
-        rows = (w0[b0:b1].to(torch.int64) * 8)[:, None] + torch.arange(
-            R, device=dev)[None]                                 # (B, R)
-        wv = win[:, rows]                                        # (3,B,R,CL)
+        rows = (origin[b0:b1, None, :]
+                + torch.arange(R, device=dev)[None, :, None])    # (B, R, CL)
+        wv = torch.gather(win[:, None].expand(3, B, g.rpad, CL), 2,
+                          rows[None].expand(3, B, R, CL))        # (3,B,R,CL)
         if config.dual_col:
             wv = torch.cat([wv, wv[..., right]])                 # (6,B,R,CL)
         bandf = torch.arange(b0, b1, dtype=_F32, device=dev)
@@ -695,14 +741,14 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
         q4 = qy[:, :, None, None]
         s_hi = wv[1][:, None, :-1]
         s_lo = wv[1][:, None, 1:]
-        kb = kb_all[b0:b1, None, None]
-        ke = ke_all[b0:b1, None, None]
+        kb = kb_c[b0:b1, None, None]
+        ke = ke_c[b0:b1, None, None]
         cross = (s_hi >= q4) & (s_lo < q4) & (kk >= kb) & (kk < ke)
         csum = torch.cumsum(cross.to(torch.int32), dim=2)
         for s in range(NBR):
             fire = cross & (csum == s + 1)
             if s >= 1:
-                fire = fire & (multi_all[b0:b1, None, None] == 1)
+                fire = fire & (multi_c[b0:b1, None, None] == 1)
             has = fire.any(dim=2)                                # (B, 8, CL)
             k = torch.argmax(fire.to(torch.uint8), dim=2)        # (B, 8, CL)
 
@@ -720,7 +766,8 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
             out = rec[b0:b1, s]                       # (B, nrec, 8, CL) view
             out[:, 0] = torch.where(has, sxc, out[:, 0])
             out[:, 1] = torch.where(has, zc, out[:, 1])
-            out[:, 2] = torch.where(has, k.to(_F32), out[:, 2])
+            out[:, 2] = torch.where(has, k.to(_F32) + kbase[b0:b1, None],
+                                    out[:, 2])
             for sj in range(SR):
                 r = k - OFF + sj
                 for v in range(PR):
@@ -732,7 +779,8 @@ def solve_records_plain(win, w0, bounds, g: ScanGeometry,
 
 class _Best(NamedTuple):
     """The division-free winner carry: z numerator, doubled area, triangle
-    id, and u/w, v/w, 1/w scaled by the area."""
+    id, u/w, v/w, 1/w scaled by the area, and the least barycentric weight
+    scaled by the area (read by the wireframe mode)."""
 
     zn: torch.Tensor
     ar: torch.Tensor
@@ -740,24 +788,48 @@ class _Best(NamedTuple):
     uw: torch.Tensor
     vw: torch.Tensor
     iw: torch.Tensor
+    ml: torch.Tensor
 
     def where(self, m, other: "_Best") -> "_Best":
         return _Best(*(torch.where(m, a, b) for a, b in zip(self, other)))
 
 
+def _model_z(x, y, z, m2, m3, sxw, syw):
+    """A corner's model z for the edge cull (the JAX kernel's ``zm_of``): the
+    inverse MVP's rows 2 and 3 applied to the corner's NDC, then a divide
+    guarded at |1/w| <= 1e-30, with each multiply-add fused as XLA's CPU
+    backend fuses it."""
+    fma = common.fma
+    a = fma(x, sxw, common.const(-1.0, x))
+    b = fma(y, syw, common.const(-1.0, y))
+    iw = fma(m3[2], z, fma(m3[0], a, m3[1] * b)) + m3[3]
+    num = fma(m2[2], z, fma(m2[0], a, m2[1] * b)) + m2[3]
+    return num / torch.where(iw.abs() > _f32(1e-30), iw, torch.ones_like(iw))
+
+
 def _cell_fold(best: _Best, cell_ok, diag_e, top_e, bottom_e, left_e, right_e,
                z00, z10, z01, z11, i00, i10, i01, i11, u0, u1, v_top, v_bot,
-               base_id, inv_ncm1, inv_nrm1) -> _Best:
+               base_id, inv_ncm1, inv_nrm1, zms=None, cull=None) -> _Best:
     """One cell's exact coverage test and winner fold (JAX ``_cell_fold``):
     the diagonal's sign selects one triangle, coverage needs all three edges
     >= 0, area > 1e-12 and the depth in [-1, 1]; the nearer depth wins,
-    compared cross-multiplied, ties to the lower triangle id."""
+    compared cross-multiplied, ties to the lower triangle id. With ``cull``
+    (the edge-cull threshold) the cell also needs its selected triangle's
+    corner model-z spread (``zms``: the four corners' :func:`_model_z`) at
+    most ``cull``."""
     d = diag_e >= 0.0
     w_a = torch.where(d, diag_e, bottom_e)
     w_b = torch.where(d, top_e, right_e)
     w_c = torch.where(d, left_e, -diag_e)
     area = w_a + w_b + w_c
     ok = cell_ok & (area > _f32(1e-12))
+    if cull is not None:
+        zm00, zm10, zm01, zm11 = zms
+        zm_a = torch.where(d, zm00, zm01)
+        zm_c = torch.where(d, zm01, zm11)
+        spread = (torch.maximum(torch.maximum(zm_a, zm10), zm_c)
+                  - torch.minimum(torch.minimum(zm_a, zm10), zm_c))
+        ok = ok & (spread <= _f32(cull))
     inside = ((d & (top_e >= 0.0) & (left_e >= 0.0))
               | (~d & (bottom_e >= 0.0) & (right_e >= 0.0)))
     z_a = torch.where(d, z00, z01)
@@ -775,7 +847,8 @@ def _cell_fold(best: _Best, cell_ok, diag_e, top_e, bottom_e, left_e, right_e,
     uw = torch.where(d, u0, u1) * iw + inv_ncm1 * torch.where(d, p_c, -p_b)
     vw = torch.where(d, v_top, v_bot) * iw + inv_nrm1 * torch.where(d, -p_b,
                                                                     p_a)
-    new = _Best(znum, area, tid, uw, vw, iw)
+    ml = torch.minimum(w_a, torch.minimum(w_b, w_c))
+    new = _Best(znum, area, tid, uw, vw, iw, ml)
     return new.where(better, best)
 
 
@@ -791,16 +864,20 @@ def n_attrs(raster_z: bool) -> int:
 
 
 def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
-                      config: ScanConfig, bflag=None, raster_z: bool = False):
+                      config: ScanConfig, bflag=None, raster_z: bool = False,
+                      wire: bool = False):
     """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL)
     float32: u, v, model z, coverage (1.0 / 0.0); with ``raster_z`` a fifth
     plane, the raster z (FAR where uncovered).
 
     ``minv`` is the frame's (8,) float32 inverse-MVP rows 2 and 3. Pixels
     are processed as (bands, 8, blocks, 128); the JAX kernel's block-level
-    gates (slot gate, hypothesis-2 gate, colfix gate and fan row bounds)
-    reduce over each 8x128 block. ``bflag`` (nbands,) leaves unflagged bands
-    uncovered (zeros, raster z FAR) without marching them.
+    gates (slot gate, chunk gate, hypothesis-2 gate, colfix gate and fan row
+    bounds) reduce over each 8x128 block. ``bflag`` (nbands,) leaves
+    unflagged bands uncovered (zeros, raster z FAR) without marching them.
+    ``wire`` (the wireframe mode): the coverage plane keeps the covered
+    pixels whose winner's least barycentric weight is at most
+    ``common.WIREFRAME_EDGE_THRESHOLD`` of its doubled area.
     """
     dev = rec.device
     c = _Consts.of(g)
@@ -812,7 +889,7 @@ def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
     m3 = [common.const(_f32(minv[4 + k]), rec) for k in range(4)]
     for b0, b1 in _active_chunks(g.nbands, bflag):
         attrs = _march_bands(rec[b0:b1], win, w0[b0:b1], bounds, canch,
-                             mid, m2, m3, b0, g, c, config)
+                             mid, m2, m3, b0, g, c, config, wire)
         attrs = attrs[:na].reshape(na, (b1 - b0) * 8, g.wl)
         if bflag is not None:
             keep = bflag[b0:b1].bool().repeat_interleave(8)[None, :, None]
@@ -822,13 +899,20 @@ def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
 
 
 def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
-                 g: ScanGeometry, c: _Consts, config: ScanConfig):
+                 g: ScanGeometry, c: _Consts, config: ScanConfig,
+                 wire: bool = False):
     dev = rec.device
     B = rec.shape[0]
     NBR, SR, OFF, CW = config.nbr, config.sr, config.off, config.cw
     CL, nblk = g.cl, g.nblk
     CWF = min(CW + 128, CL)
-    MW = CW
+    # big_grid marches the whole 128-aligned fetch window; a window of 4 or
+    # more 128-column chunks marches chunk by chunk behind a block gate, and
+    # never narrow.
+    MW = CWF if config.big_grid else CW
+    chunked = MW // 128 >= 4
+    narrow_ok = not config.big_grid and CW > 128 and not chunked
+    cull = config.edge_cull_threshold
     FAR = common.const(_FAR, rec)
     inv_ncm1 = common.const(c.inv_ncm1, rec)
     inv_nrm1 = common.const(c.inv_nrm1, rec)
@@ -846,9 +930,11 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
     canch = canch.to(torch.int64)
     canch_m = canch * 8                                      # (nblk,)
     canch_f = canch_m // 128
-    off_f = canch_m - canch_f * 128
-    # Prep gives -1 (wide) everywhere when cw <= 128; the patch pass's block
-    # gate may set -2 there too.
+    # March-window column -> fetch-window column.
+    off_f = (torch.zeros_like(canch_m) if config.big_grid
+             else canch_m - canch_f * 128)
+    # Prep gives -1 (wide) everywhere when cw <= 128 or big_grid; the patch
+    # pass's block gate may set -2 there too.
     midb = mid.reshape(g.nbands, nblk)[b0:b0 + B].to(torch.int64)
     w0r = w0.to(torch.int64) * 8                             # (B,) rows
     w0f = w0r.to(_F32)[:, None, None, None]
@@ -879,11 +965,15 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
 
     best = _Best(FAR.expand(B, 8, nblk, 128), torch.ones_like(qx),
                  torch.full_like(qx, 2.0e30), torch.zeros_like(qx),
-                 torch.zeros_like(qx), torch.zeros_like(qx))
+                 torch.zeros_like(qx), torch.zeros_like(qx),
+                 torch.zeros_like(qx))
 
     def invw(x, y, z):
         return (m3[0] * (x * sxw - 1.0) + m3[1] * (y * syw - 1.0)
                 + m3[2] * z + m3[3])
+
+    def model_z(corner):
+        return _model_z(*corner, m2, m3, sxw, syw)
 
     def realigned_right(s, j1, bw1):
         """The right neighbour record's strip, realigned by the bracket-row
@@ -926,6 +1016,9 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
             aligned2 = realigned_right(s, j1, bw1)
         iw1 = [invw(*strip1[k]) for k in range(SR)]
         iw2 = [invw(*aligned2[k]) for k in range(SR)]
+        if cull is not None:
+            zm1 = [model_z(strip1[k]) for k in range(SR)]
+            zm2 = [model_z(aligned2[k]) for k in range(SR)]
         cg = blk(canch_f * 128).to(_F32) + j1.to(_F32)
         u0 = cg * inv_ncm1
         u1 = (cg + 1.0) * inv_ncm1
@@ -950,10 +1043,12 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
             bottom_e = _edge(x10, y10, x11, y11, qx, qy)
             right_e = _edge(x11, y11, x01, y01, qx, qy)
             prev_bottom = bottom_e
+            zms = (None if cull is None
+                   else (zm1[k], zm1[k + 1], zm2[k], zm2[k + 1]))
             b = _cell_fold(b, cell_ok, diag_e, top_e, bottom_e, left_e,
                            right_e, z00, z10, z01, z11, iw1[k], iw1[k + 1],
                            iw2[k], iw2[k + 1], u0, u1, v_top, v_bot, base_id,
-                           inv_ncm1, inv_nrm1)
+                           inv_ncm1, inv_nrm1, zms, cull)
         return b
 
     def sweep(s, lo, L, need2):
@@ -980,17 +1075,57 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
             o2 = torch.argmax((key2 == m2v[..., None]).to(torch.uint8), dim=4)
         return o1, m1, cnt, o2
 
+    def sweep_chunked(s, lo):
+        """The JAX kernel's chunked march over a window of 4+ chunks: per
+        128-column chunk of the window, a block gate (some crossing x of the
+        block's 8 scanlines, over the chunk and the next chunk's first 8
+        columns, at most the block's last pixel centre, and some real one at
+        least its first pixel centre - 64) and a bracket sweep over the
+        chunk's 128 pair bases (the window's last chunk: 127). Returns per
+        pixel (o1, m1, cnt): the first column of the nearest hit in a gated
+        chunk, or ``MW`` if none, its key, and the gated chunks' hit
+        count."""
+        qx0 = blk(blkf * 128.0 + 0.5)
+        o1 = torch.full(qx.shape, MW, dtype=torch.int64, device=dev)
+        m1 = FAR.expand(qx.shape)
+        cnt = torch.zeros(qx.shape, dtype=torch.int64, device=dev)
+        for ch in range(MW // 128):
+            L = 128 + 8 if ch < MW // 128 - 1 else 128
+            npair = 128 if ch < MW // 128 - 1 else 127
+            cols = lo[:, None, :, None] + ch * 128 + torch.arange(L,
+                                                                  device=dev)
+            sxs = gather_cols(plane(s, 0), cols)             # (B, 8, nblk, L)
+            zcs = gather_cols(plane(s, 1), cols)
+            near = (sxs <= qx0 + 127.0).any(dim=3, keepdim=True)
+            real = ((sxs < _f32(_FAR * 0.5))
+                    & (sxs >= qx0 - 64.0)).any(dim=3, keepdim=True)
+            gate = (near.any(dim=1, keepdim=True)
+                    & real.any(dim=1, keepdim=True))        # (B, 1, nblk, 1)
+            a, an = sxs[..., :npair], sxs[..., 1:npair + 1]
+            q = qx[..., None]
+            hit = ((q >= torch.minimum(a, an)[:, :, :, None, :])
+                   & (q <= torch.maximum(a, an)[:, :, :, None, :]))
+            key = torch.where(hit, zcs[:, :, :, None, :npair], FAR)
+            m1c = key.amin(dim=4)
+            o1c = torch.argmax((key == m1c[..., None]).to(torch.uint8),
+                               dim=4) + ch * 128
+            better = gate & (m1c < m1)
+            o1 = torch.where(better, o1c, o1)
+            m1 = torch.where(better, m1c, m1)
+            cnt = cnt + torch.where(gate, hit.sum(dim=4), 0)
+        return o1, m1, cnt
+
     fixes = []
-    lo_w = canch_m[None].expand(B, nblk)
+    lo_w = (canch_f * 128 + off_f)[None].expand(B, nblk)     # window start
     lo_n = canch_m[None] + torch.clamp(midb, min=0) * 8
     narrow = blk(midb) >= 0
     for s in range(NBR):
         zc_w = gather_cols(plane(s, 1), lo_w[:, None, :, None]
-                           + torch.arange(CW, device=dev))
+                           + torch.arange(MW, device=dev))
         any_rec = block_any((zc_w < _f32(_FAR * 0.5)).any(dim=3,
                                                            keepdim=True)
                             .expand(B, 8, nblk, 128))
-        if CW > 128:
+        if narrow_ok:
             zc_n = gather_cols(plane(s, 1), lo_n[:, None, :, None]
                                + torch.arange(128, device=dev))
             any_nar = block_any((zc_n < _f32(_FAR * 0.5)).any(
@@ -999,19 +1134,23 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
         gate = any_rec & (blk(midb) != -2)
 
         need2 = config.hyps == 2
-        o1w, m1w, cntw, o2w = sweep(s, lo_w, CW, need2)
-        if CW > 128:
-            o1n, m1n, cntn, o2n = sweep(s, lo_n, 128, need2)
-            mid8 = (blk(midb) * 8).to(_F32)
-            h1 = torch.where(narrow, o1n.to(_F32) + mid8, o1w.to(_F32))
-            m1 = torch.where(narrow, m1n, m1w)
-            cnt = torch.where(narrow, cntn, cntw)
-            if need2:
-                h2 = torch.where(narrow, o2n.to(_F32) + mid8, o2w.to(_F32))
+        if chunked:
+            o1c, m1, cnt = sweep_chunked(s, lo_w)
+            h1 = o1c.to(_F32)
+            if need2:   # the second hypothesis sweeps the whole window
+                h2 = sweep(s, lo_w, MW, True)[3].to(_F32)
         else:
-            h1, m1, cnt = o1w.to(_F32), m1w, cntw
-            if need2:
-                h2 = o2w.to(_F32)
+            o1w, m1, cnt, o2w = sweep(s, lo_w, MW, need2)
+            h1 = o1w.to(_F32)
+            h2 = o2w.to(_F32) if need2 else None
+            if narrow_ok:
+                o1n, m1n, cntn, o2n = sweep(s, lo_n, 128, need2)
+                mid8 = (blk(midb) * 8).to(_F32)
+                h1 = torch.where(narrow, o1n.to(_F32) + mid8, h1)
+                m1 = torch.where(narrow, m1n, m1)
+                cnt = torch.where(narrow, cntn, cnt)
+                if need2:
+                    h2 = torch.where(narrow, o2n.to(_F32) + mid8, h2)
         new = exact_record(best, s, h1)
         if need2:
             multi = block_any(cnt > 1)
@@ -1039,8 +1178,11 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
     ndcx = qx * c.sxw - 1.0
     ndcy = qy * c.syw - 1.0
     num = (m2[0] * ndcx + m2[1] * ndcy + m2[2] * bz + m2[3]) * best.ar
-    zm = torch.where(cov, num / den, zero)
-    return torch.stack([u, v, zm, cov.to(_F32), bz])         # (5,B,8,nblk,128)
+    zmod = torch.where(cov, num / den, zero)
+    if wire:
+        cov = cov & (best.ml <= common.const(common.WIREFRAME_EDGE_THRESHOLD,
+                                             bz) * best.ar)
+    return torch.stack([u, v, zmod, cov.to(_F32), bz])       # (5,B,8,nblk,128)
 
 
 def fan_cascade(k: int):
@@ -1066,19 +1208,24 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
     column ``j0``; every window row k in the block's [rb0*8, rb1*8) is
     exact-tested over the fan's cells, masked to [kb_u, ke_u) — the union
     of the scan bounds of the chunks any valid fan corner of the block lands
-    in.
+    in. In ``big_grid`` the rows are global grid rows, and a cell also
+    needs row k inside the scan rows of the chunks both its corner columns
+    land in (the JAX kernel's per-subtable row masks).
     """
     B, _, nblk, _ = qx.shape
     sel = go.expand(B, 1, nblk, 1)[:, 0, :, 0].nonzero()    # (Nb, 2)
     if sel.shape[0] == 0:
         return best
     bi, ki = sel[:, 0], sel[:, 1]
-    R = config.rmax
-    nrow_blocks = R // 8
+    big = config.big_grid
+    # Rows of the window the fan reads: the band's rmax rows, or big_grid's
+    # whole (padded) grid.
+    R = g.rpad if big else config.rmax
     CWF = min(config.cw + 128, g.cl)
-    MW = config.cw
+    MW = CWF if big else config.cw
     nsub = CWF // 128
     NF = len(offs)
+    cull = config.edge_cull_threshold
     inv_ncm1 = common.const(c.inv_ncm1, qx)
     inv_nrm1 = common.const(c.inv_nrm1, qx)
     sxw = common.const(c.sxw, qx)
@@ -1096,30 +1243,39 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
                                                                           None]
     ix = [j0 + o for o in offs]
     colok = [hitok & (x >= 0) & (x <= CWF - 1) for x in ix]
+    sub = [torch.clamp(x, 0, CWF - 1) // 128 for x in ix]   # fetch chunk
     col = [cf[:, None, None] * 128 + torch.clamp(x, 0, CWF - 1) for x in ix]
     cg = [cc.to(_F32) for cc in col]
 
-    # Row bounds: union over the chunks the block's valid fan corners use.
+    # Each chunk's scan rows in window rows (big_grid: global rows).
     band = bi + b0
-    bnd = bounds.reshape(g.nbands, g.nchunks).to(torch.int64)
+    org, kbs, kes, _ = unpack_bounds(
+        bounds, torch.zeros(g.nbands, dtype=torch.int64, device=qx.device),
+        g, config)
+    nonempty = kes > kbs
+    lo_t = torch.where(nonempty, org + kbs, R)
+    hi_t = torch.where(nonempty, org + kes, 0)
+    # Row bounds: union over the chunks the block's valid fan corners use.
     kb_u = torch.full_like(cf, R)
     ke_u = torch.zeros_like(cf)
     for tt in range(nsub):
         used = torch.zeros_like(hitok)
         for cc in range(NF):
-            used = used | (colok[cc] & (torch.clamp(ix[cc], 0, CWF - 1) // 128
-                                        == tt))
+            used = used | (colok[cc] & (sub[cc] == tt))
         used = used.flatten(1).any(dim=1)
-        bt = bnd[band, cf + tt]
-        kbt, ket = bt & 0xFFF, (bt >> 12) & 0xFFF
-        ne = (ket > kbt) & used
-        kb_u = torch.where(ne, torch.minimum(kb_u, kbt), kb_u)
-        ke_u = torch.where(ne, torch.maximum(ke_u, ket), ke_u)
-    rb0 = torch.clamp(kb_u // 8, max=nrow_blocks - 1)
-    rb1 = torch.clamp((ke_u + 8) // 8, max=nrow_blocks)
+        kb_u = torch.where(used, torch.minimum(kb_u, lo_t[band, cf + tt]),
+                           kb_u)
+        ke_u = torch.where(used, torch.maximum(ke_u, hi_t[band, cf + tt]),
+                           ke_u)
+    rb0 = torch.clamp(kb_u // 8, max=R // 8 - 1)
+    rb1 = torch.clamp((ke_u + 8) // 8, max=R // 8)
     k_lo, k_hi = int(rb0.min()) * 8, int(rb1.max()) * 8
     if k_hi <= k_lo:
         return best
+    if big:   # each corner column's own chunk rows
+        chunk_rows = [(lo_t[band[:, None, None], cf[:, None, None] + t],
+                       hi_t[band[:, None, None], cf[:, None, None] + t])
+                      for t in sub]
 
     base = w0r[bi][:, None, None]                            # window row 0
     wflat = win.reshape(3, -1)
@@ -1142,9 +1298,11 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
     prev_bottom = [None] * len(cells)
     for k in range(k_lo, k_hi):
         kt = torch.full_like(cf, k)
-        # Row k+1 past the window re-reads the last 8-row block's first row
-        # (the JAX kernel's clamped block load; such rows are masked).
-        kb_next = torch.where(kt + 1 >= R, torch.full_like(kt, R - 8), kt + 1)
+        # Row k+1 past the band window re-reads the last 8-row block's first
+        # row (the JAX kernel's clamped block load), and past big_grid's
+        # padded grid the last row; such rows are masked.
+        kb_next = torch.where(kt + 1 >= R, torch.full_like(kt, R - 1 if big
+                                                           else R - 8), kt + 1)
         gtop = corners(kt)
         gbot = corners(kb_next)
         r_cell = w0f[bi] + float(k)                          # (Nb, 1, 1, 1)
@@ -1157,6 +1315,11 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
                        qxs, qys) for cc in range(NF)]
         iwt = [invw(*gtop[cc]) for cc in range(NF)]
         iwb = [invw(*gbot[cc]) for cc in range(NF)]
+        if cull is not None:
+            zmt = [_model_z(*gtop[cc], m2, m3, sxw, syw) for cc in range(NF)]
+            zmb = [_model_z(*gbot[cc], m2, m3, sxw, syw) for cc in range(NF)]
+        if big:
+            in_chunk = [(k >= lo) & (k < hi) for lo, hi in chunk_rows]
         first = st3 == k
         for ci, f in enumerate(cells):
             x00, y00, z00 = gtop[f]
@@ -1166,6 +1329,8 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
             cgf = cg[f]
             cell_ok = (row_ok & colok[f] & colok[f + 1]
                        & (cgf <= float(g.n_c - 2)))
+            if big:
+                cell_ok = cell_ok & in_chunk[f] & in_chunk[f + 1]
             u0 = cgf * inv_ncm1
             u1 = (cgf + 1.0) * inv_ncm1
             base_id = (r_cell * float(g.n_c - 1) + cgf) * 2.0
@@ -1175,10 +1340,13 @@ def _colfix(best: _Best, go, h1s, m1s, qx, qy, win, w0r, w0f, bounds,
                      else torch.where(first, top0, -prev_bottom[ci]))
             bottom_e = _edge(x10, y10, x11, y11, qxs, qys)
             prev_bottom[ci] = bottom_e
+            zms = (None if cull is None
+                   else (zmt[f], zmb[f], zmt[f + 1], zmb[f + 1]))
             bsel = _cell_fold(bsel, cell_ok, diag_e, top_e, bottom_e,
                               lines[f], -lines[f + 1], z00, z10, z01, z11,
                               iwt[f], iwb[f], iwt[f + 1], iwb[f + 1], u0, u1,
-                              v_top, v_bot, base_id, inv_ncm1, inv_nrm1)
+                              v_top, v_bot, base_id, inv_ncm1, inv_nrm1, zms,
+                              cull)
     out = []
     for full, part in zip(best, bsel):
         full = full.clone()
@@ -1191,8 +1359,10 @@ def shade_plain(attrs, texq, ht: int, wt: int, mode: str, bflag=None):
     """Bilinear RGBA8 shade of attrs (4 or 5, HPAD, WL) -> (HPAD, WL) int32
     packed pixels, R in the low byte; background (0, 0, 0, 255).
 
-    ``mode`` ``texture_z`` shades as ``texture`` and returns ``(packed,
-    z)``: z the raster depth (attrs plane 4) where covered, FAR elsewhere.
+    ``mode`` ``wireframe`` shades as ``texture`` (the march's ``wire``
+    coverage already keeps only the edge bands); ``texture_z`` shades as
+    ``texture`` and returns ``(packed, z)``: z the raster depth (attrs plane
+    4) where covered, FAR elsewhere.
     ``bflag`` (nbands,; texture_z only) gives unflagged bands packed 0 and z
     FAR.
     """
@@ -1240,7 +1410,9 @@ def build_kernels(force: bool = False) -> Path:
     return cuda_build.build("scan.cu", force=force)
 
 
-_MODES = {"texture": 0, "debug_z": 1, "texture_z": 2}  # ScanParams.mode
+# ScanParams.mode; the wireframe mode's coverage is the march's, so it shades
+# as the texture mode does.
+_MODES = {"texture": 0, "debug_z": 1, "texture_z": 2, "wireframe": 0}
 
 
 class _Params(ctypes.Structure):
@@ -1250,9 +1422,10 @@ class _Params(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "width", "height", "n_r", "n_c", "cl", "rpad", "wl", "hpad",
         "nbands", "nchunks", "nblk", "rmax", "cw", "cwf", "sr", "off", "nbr",
-        "hyps", "dmax", "colfix", "ht", "wt", "mode", "dual", "raster_z")] + [
+        "hyps", "dmax", "colfix", "ht", "wt", "mode", "dual", "raster_z",
+        "big", "wire", "cull")] + [
         (name, ctypes.c_float) for name in (
-            "sxw", "syw", "inv_ncm1", "inv_nrm1")] + [
+            "sxw", "syw", "inv_ncm1", "inv_nrm1", "cull_thr")] + [
         ("m2", ctypes.c_float * 4), ("m3", ctypes.c_float * 4)]
 
 
@@ -1274,7 +1447,8 @@ def _load_lib():
 
 
 def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
-            mode: str = "texture", raster_z: bool = False) -> _Params:
+            mode: str = "texture", raster_z: bool = False,
+            wire: bool = False) -> _Params:
     c = _Consts.of(g)
     dmax = config.sr - 1 if config.dmax is None else min(config.dmax,
                                                          config.sr - 1)
@@ -1286,9 +1460,11 @@ def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
         nbr=config.nbr, hyps=config.hyps, dmax=dmax,
         colfix=-1 if config.colfix is None else config.colfix,
         ht=int(tex_hw[0]), wt=int(tex_hw[1]), mode=_MODES[mode],
-        dual=int(config.dual_col), raster_z=int(raster_z), sxw=c.sxw,
-        syw=c.syw,
-        inv_ncm1=c.inv_ncm1, inv_nrm1=c.inv_nrm1)
+        dual=int(config.dual_col), raster_z=int(raster_z),
+        big=int(config.big_grid), wire=int(wire),
+        cull=int(config.edge_cull_threshold is not None), sxw=c.sxw,
+        syw=c.syw, inv_ncm1=c.inv_ncm1, inv_nrm1=c.inv_nrm1,
+        cull_thr=_f32(config.edge_cull_threshold or 0.0))
     if minv is not None:
         for k in range(4):
             p.m2[k] = _f32(minv[k])
@@ -1342,13 +1518,15 @@ def solve_records(win, w0, bounds, g: ScanGeometry, config: ScanConfig,
 
 
 def march_exact(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
-                config: ScanConfig, bflag=None, raster_z: bool = False):
+                config: ScanConfig, bflag=None, raster_z: bool = False,
+                wire: bool = False):
     """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL),
-    with ``raster_z`` (5, HPAD, WL) (see :func:`march_exact_plain`). CPU
-    tensors: :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
+    with ``raster_z`` (5, HPAD, WL); ``wire`` gives the wireframe mode's
+    coverage (see :func:`march_exact_plain`). CPU tensors:
+    :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
     if _on_cpu(rec, win, w0, bounds, canch, mid, bflag):
         return march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g,
-                                 config, bflag, raster_z)
+                                 config, bflag, raster_z, wire)
     _check(rec=(rec, _F32, (g.nbands, config.nbr, config.nrec, 8, g.cl)),
            win=(win, _F32, (3, g.rpad, g.cl)), w0=(w0, _I32, (g.nbands,)),
            bounds=(bounds, _I32, (g.nbands * g.nchunks,)),
@@ -1360,7 +1538,7 @@ def march_exact(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
     _launch("scan_march",
             [rec.data_ptr(), win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
              canch.data_ptr(), mid.data_ptr(), _ptr(bflag), attrs.data_ptr()],
-            _params(g, config, minv=minv, raster_z=raster_z))
+            _params(g, config, minv=minv, raster_z=raster_z, wire=wire))
     return attrs
 
 
@@ -1416,7 +1594,8 @@ def _render_pass(p: ScanPrep, i: int, minv_i, g: ScanGeometry,
     args = (p.win[i], p.w0[i], p.bounds[i])
     rec = solve_records(*args, g, config, bflag)
     attrs = march_exact(rec, *args, p.canch[i], p.mid[i], minv_i, g, config,
-                        bflag, raster_z=mode == "texture_z")
+                        bflag, raster_z=mode == "texture_z",
+                        wire=mode == "wireframe")
     return shade(attrs, texq, g, config, mode, bflag)
 
 
@@ -1436,9 +1615,13 @@ def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
         here waits for the device.
     """
     check_supported(config)
-    if mode not in ("texture", "debug_z"):
+    if mode not in ("texture", "debug_z", "wireframe"):
+        raise ValueError(f"unknown scan mode {mode!r}")
+    if mode == "wireframe" and config.row_edge:
         raise NotImplementedError(
-            f"scan mode {mode!r} is not ported yet (ROADMAP.md queue 1)")
+            "the quality tier's wireframe mode (an attrs merge carrying the "
+            "winner's least barycentric weight) is not ported yet "
+            "(ROADMAP.md queue 1 item 5)")
     check_uv_grid(uv_grid)
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device

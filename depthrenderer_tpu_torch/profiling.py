@@ -1,16 +1,19 @@
 """Where a clip's device time goes: ``render_clip`` under ``torch.profiler``.
 
     python -m depthrenderer_tpu_torch.profiling [--impl scan|pallas|grid]
-        [--tier quality|patch]
+        [--tier quality|patch] [--density D] [--width W] [--height H]
+        [--edge-cull T] [--frames N]
 
-Renders the synthetic scene (:mod:`.synthetic`) at mesh density 10 and
-1920x1080, 64 frames of the default sway at 60 fps, with a sink that drops
-the frames, after one 16-frame warm-up group, and prints one JSON
-line: the card (``nvidia-smi`` name and power limit), wall ms, device busy ms
-(the sum of the CUDA kernels' and copies' self time), the busy share, peak
-device memory, and each kernel's ms per frame with its share of the busy
-time. ``--tier`` profiles one of the scan's fidelity tiers: ``quality``, or
-``patch`` with colfix 3. It needs a CUDA device.
+Renders the synthetic scene (:mod:`.synthetic`, at the output's size) at
+mesh density 10 and 1920x1080 by default, 64 frames of the default sway at
+60 fps, with a sink that drops the frames, after one 16-frame warm-up group,
+and prints one JSON line: the card (``nvidia-smi`` name and power limit),
+wall ms, device busy ms (the sum of the CUDA kernels' and copies' self
+time), the busy share, peak device memory, and each kernel's ms per frame
+with its share of the busy time. ``--tier`` profiles one of the scan's
+fidelity tiers: ``quality``, or ``patch`` with colfix 3. BASELINE preset 4
+is ``--impl scan --density 12 --width 3840 --height 2160 --edge-cull 0.25
+--frames 16``. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -27,7 +30,8 @@ TOP = 12   # kernels listed
 TIERS = {"quality": {"quality": True}, "patch": {"patch": True, "colfix": 3}}
 
 
-def profile_clip(impl="pallas", tier=None):
+def profile_clip(impl="pallas", tier=None, density=DENSITY, width=WIDTH,
+                 height=HEIGHT, edge_cull=None, frames=FRAMES):
     """Profile one ``render_clip`` run -> dict (see the module docstring)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -36,20 +40,21 @@ def profile_clip(impl="pallas", tier=None):
     from .scene import Camera, Mesh, Texture
     from .synthetic import synthetic_scene
 
-    colour, depth = synthetic_scene()
+    colour, depth = (synthetic_scene() if (width, height) == (WIDTH, HEIGHT)
+                     else synthetic_scene(h=height, w=width))
     mesh = Mesh.from_texture(Texture(colour), depth_map=depth,
-                             density=DENSITY)
+                             density=density)
     mesh.vertices[:, 2] *= 4.0
     projection = Camera((colour.shape[1], colour.shape[0]),
                         fov_y=18.0).projection
     views = transforms.matmul(
         transforms.translation(dz=-10.0)[None],
-        animation.default_sway().batch(animation.frame_times(FRAMES, 60.0)))
+        animation.default_sway().batch(animation.frame_times(frames, 60.0)))
 
     def run(v):
-        render_clip(mesh, projection, v, WIDTH, HEIGHT, impl=impl,
+        render_clip(mesh, projection, v, width, height, impl=impl,
                     on_frames=lambda s, f: None, device="cuda",
-                    **TIERS.get(tier, {}))
+                    edge_cull_threshold=edge_cull, **TIERS.get(tier, {}))
         torch.cuda.synchronize()
 
     run(views[:WARM])
@@ -73,12 +78,13 @@ def profile_clip(impl="pallas", tier=None):
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     return {
-        "card": card, "impl": impl, "tier": tier, "frames": FRAMES,
-        "size": f"{WIDTH}x{HEIGHT}", "density": DENSITY,
+        "card": card, "impl": impl, "tier": tier, "frames": frames,
+        "size": f"{width}x{height}", "density": density,
+        "edge_cull": edge_cull,
         "wall_ms": round(wall_ms, 2), "device_busy_ms": round(busy, 2),
         "busy_share": round(busy / wall_ms, 4),  # 0 if nothing was traced
         "peak_gib": round(torch.cuda.max_memory_allocated() / 2**30, 2),
-        "kernels": [{"name": k[:80], "ms_per_frame": round(ms / FRAMES, 4),
+        "kernels": [{"name": k[:80], "ms_per_frame": round(ms / frames, 4),
                      "share": round(ms / max(busy, 1e-9), 4)}
                     for k, ms in rows[:TOP]],
     }
@@ -90,6 +96,14 @@ def main(argv=None):
                     default="pallas")
     ap.add_argument("--tier", choices=tuple(TIERS), default=None,
                     help="a fidelity tier of the scan (implies --impl scan)")
+    ap.add_argument("--density", type=int, default=DENSITY,
+                    help=f"mesh density (default {DENSITY})")
+    ap.add_argument("--width", type=int, default=WIDTH)
+    ap.add_argument("--height", type=int, default=HEIGHT)
+    ap.add_argument("--edge-cull", type=float, default=None,
+                    dest="edge_cull", help="edge-cull threshold (default off)")
+    ap.add_argument("--frames", type=int, default=FRAMES,
+                    help=f"profiled frames (default {FRAMES})")
     args = ap.parse_args(argv)
     if args.tier is not None:
         args.impl = "scan"
@@ -97,7 +111,9 @@ def main(argv=None):
         raise SystemExit("profiling needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    print(json.dumps(profile_clip(args.impl, args.tier)), flush=True)
+    print(json.dumps(profile_clip(args.impl, args.tier, args.density,
+                                  args.width, args.height, args.edge_cull,
+                                  args.frames)), flush=True)
 
 
 if __name__ == "__main__":

@@ -39,16 +39,16 @@ def resolve_device(device) -> torch.device:
 
 
 def _auto_impl(grid_n: int, width: int = 1920, height: int = 1080) -> str:
-    """The rasteriser for a grid: the scan whenever the config it resolves
-    to is the standard variant. Anything else raises; the tiled route is an
-    explicit choice (``impl="pallas"``), never a silent switch."""
+    """The rasteriser for a grid: the scan whenever its suggested config fits
+    the JAX package's budget (the standard variant through d10, big_grid
+    through d12). A larger grid raises; the tiled route is an explicit
+    choice (``impl="pallas"``), never a silent switch."""
     cfg = raster_scan.suggest_scan_config(grid_n, width, height)
     if raster_scan.scan_supported(grid_n, cfg):
         return "scan"
     raise NotImplementedError(
-        f"grid n={grid_n} resolves to the big_grid scan variant (d >= 11), "
-        "which is not ported yet (ROADMAP.md queue 1 item 5, 'd11/d12 and "
-        "edge culling'); choose the tiled route explicitly with "
+        f"grid n={grid_n} exceeds the scan's budget even in its big_grid "
+        "variant (d <= 12); choose the tiled route explicitly with "
         "impl='pallas' (CLI: --impl pallas)")
 
 
@@ -116,8 +116,9 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         ``"pallas"`` or ``"grid"``.
     :param binning_quantile: the tiled routes' window quantile (1.0 =
         lossless binning).
-    :param edge_cull_threshold: the tiled routes' depth-discontinuity edge
-        cull (the scan's is not ported yet).
+    :param edge_cull_threshold: the depth-discontinuity edge cull: cells or
+        triangles whose corner model-z spread exceeds it are dropped (the
+        scan culls in its march kernel).
     :param quality: the scan's quality tier: dual-column records and a
         full transposed second pass, merged by depth.
     :param patch: the scan's patch tier: a transposed second pass only where
@@ -132,7 +133,7 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     torch.set_float32_matmul_precision("highest")
     vgrid, uvgrid, n = _grid_arrays(mesh)
     if impl in ("auto", "scan"):
-        impl = _auto_impl(n, width, height)   # raises for big_grid
+        impl = _auto_impl(n, width, height)   # raises past d12
     elif impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     vgrid = vgrid.to(device)
@@ -147,14 +148,10 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
             raise ValueError("quality and patch are mutually exclusive "
                              "(quality already runs the full transposed "
                              "pass that patch sparsifies)")
-        if edge_cull_threshold is not None:
-            raise NotImplementedError(
-                "edge culling on the scan is not ported yet (ROADMAP.md "
-                "queue 1 item 5, 'd11/d12 and edge culling'); the tiled "
-                "routes (impl='pallas' or 'grid') cull")
         if config is None:
             config = raster_scan.suggest_scan_config(
                 n, width, height, quality=quality, patch=patch,
+                edge_cull_threshold=edge_cull_threshold,
                 **({} if colfix == "auto" else {"colfix": colfix}))
         raster_scan.check_supported(config)
         g = raster_scan.ScanGeometry.of(width, height, n, n, config)

@@ -40,7 +40,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def scene_mesh(seed=0):
+def scene_mesh(seed=0, density=DENSITY):
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:48, 0:64]
     d = 127 + 100 * np.sin(xx / 64 * 6) * np.cos(yy / 48 * 4)
@@ -49,13 +49,13 @@ def scene_mesh(seed=0):
     colour = rng.integers(0, 256, (48, 64, 3), np.uint8)
     mesh = tdr.Mesh.from_texture(tdr.Texture(colour),
                                  depth_map=np.clip(d, 0, 255).astype(np.uint8),
-                                 density=DENSITY)
+                                 density=density)
     mesh.vertices[:, 2] *= 4.0
     return mesh
 
 
-def scene_mvps():
-    base = transforms.matmul(transforms.perspective(18.0, W / H),
+def scene_mvps(width=W):
+    base = transforms.matmul(transforms.perspective(18.0, width / H),
                              transforms.translation(dz=-15.0))
     yaw = transforms.rotation(torch.tensor(np.deg2rad(4.0), dtype=torch.float32),
                               axis=transforms.Axis.Y)

@@ -170,6 +170,9 @@ def test_convert_round_trip(checker_texture):
     (1025, 1920, 1080, {"quality": True}), (33, 128, 96, {"hyps": 1}),
     (1025, 1920, 1080, {"patch": True}),
     (1025, 1920, 1080, {"quality": True, "colfix": 2}),
+    (4097, 3840, 2160, {"edge_cull_threshold": 0.25}),
+    (2049, 1920, 1080, {"quality": True}),
+    (4097, 3840, 2160, {"patch": True, "colfix": 3}),
 ])
 def test_suggest_scan_config_equals_jax(grid_n, width, height, kw):
     j = jrs.suggest_scan_config(grid_n, width, height, **dict(kw))
@@ -178,21 +181,29 @@ def test_suggest_scan_config_equals_jax(grid_n, width, height, kw):
 
 
 def test_scan_supported_is_standard_variant():
-    assert trs.scan_supported(1025)                       # 1080p/d10
-    assert trs.scan_supported(257, trs.suggest_scan_config(257, 320, 240))
-    assert not trs.scan_supported(2049)                   # d11: big_grid
-    assert not trs.scan_supported(
-        4097, trs.suggest_scan_config(4097, 3840, 2160))
-    with pytest.raises(NotImplementedError, match="big_grid"):
-        trender._auto_impl(2049)
-    assert trender._auto_impl(1025) == "scan"
-    for bad in [dict(big_grid=True, pack_xy=False),
-                dict(edge_cull_threshold=0.5),
-                dict(mxu_march=True, hyps=1)]:
-        with pytest.raises(NotImplementedError):
-            trs.check_supported(trs.ScanConfig(**bad))
+    """The standard variant through d10 and big_grid through d12 (BASELINE
+    preset 4 at 4K) are inside the JAX package's budget; d13 is not, and
+    raises rather than switching routes."""
+    for n, size in [(1025, (1920, 1080)), (257, (320, 240)),
+                    (2049, (1920, 1080)), (4097, (3840, 2160)),
+                    (8193, (3840, 2160))]:
+        t = trs.suggest_scan_config(n, *size)
+        j = jrs.suggest_scan_config(n, *size)
+        assert trs.scan_supported(n, t) == jrs.scan_supported(n, j)
+        assert t.big_grid == (n > 1025)
+        assert trs.scan_supported(n, t) == (n <= 4097)
+        if n <= 4097:
+            assert trender._auto_impl(n, *size) == "scan"
+        else:
+            with pytest.raises(NotImplementedError, match="budget"):
+                trender._auto_impl(n, *size)
+    assert trs.scan_supported(1025) and trs.scan_supported(2049)
+    with pytest.raises(NotImplementedError):
+        trs.check_supported(trs.ScanConfig(mxu_march=True, hyps=1))
     for ported in [dict(row_edge=True, dual_col=True), dict(patch=True),
-                   dict(colfix=0), dict(colfix=2), dict(colfix=3)]:
+                   dict(colfix=0), dict(colfix=2), dict(colfix=3),
+                   dict(big_grid=True, pack_xy=False),
+                   dict(edge_cull_threshold=0.5)]:
         trs.check_supported(trs.ScanConfig(**ported))
 
 
@@ -346,9 +357,8 @@ def test_render_clip_cuda_raises_without_a_card(checker_texture):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mode", "wireframe"], ["--impl", "scan", "--edge-cull", "0.5"],
-    ["--edge-cull", "0.5"], ["--container", "mp4"],
-    ["--overlay-noise", "32", "16"],
+    ["--container", "mp4"], ["--overlay-noise", "32", "16"],
+    ["--quality", "--mode", "wireframe"],
 ])
 def test_unported_cli_options_raise(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -357,7 +367,8 @@ def test_unported_cli_options_raise(flags):
 
 @pytest.mark.parametrize("flags", [
     ["--quality"], ["--patch"], ["--colfix", "0"], ["--colfix", "2"],
-    ["--colfix", "3"],
+    ["--colfix", "3"], ["--mode", "wireframe"], ["--edge-cull", "2.0"],
+    ["--impl", "scan", "--edge-cull", "2.0", "--mode", "debug_z"],
 ])
 def test_fidelity_cli_options_render(flags, tmp_path):
     cp, dp = _png_pair(tmp_path)
@@ -417,8 +428,10 @@ def test_quality_and_patch_are_exclusive(checker_texture):
 
 
 def test_big_grid_density_raises(checker_texture):
+    """Past big_grid's budget (d13) the scan raises before it meshes the
+    grid; it never switches to the tiled route on its own."""
     args = tcli.build_parser().parse_args(
-        ["c.png", "d.png", "--device", "cpu", "-mesh-density", "11"])
+        ["c.png", "d.png", "--device", "cpu", "-mesh-density", "13"])
     with pytest.raises(NotImplementedError, match="big_grid"):
         tcli.render_scene(checker_texture, np.zeros((48, 64), np.uint8), args)
 
@@ -432,3 +445,36 @@ def test_cli_parser_keeps_the_jax_flags():
     assert dests(jcli.build_parser()) <= dests(tcli.build_parser())
     assert "device" in dests(tcli.build_parser())
     assert tcli.build_parser().parse_args(["a", "b"]).device == "cuda"
+
+
+def test_edge_cull_model_z_matches_jitted_jax():
+    """The edge cull's corner model z (``_model_z``) bit for bit against the
+    JAX kernel's ``zm_of`` expression as XLA's CPU backend compiles it under
+    ``jit`` (the matrix rows passed as arguments, as the kernel reads
+    them)."""
+    import jax
+    import jax.numpy as jnp
+
+    width, height = 1920, 1080
+
+    def zm_of(x, y, z, m2r, m3r):   # raster_scan.py: invw_of, zm_of
+        sxw, syw = 2.0 / width, 2.0 / height
+        iw = (m3r[0] * (x * sxw - 1.0) + m3r[1] * (y * syw - 1.0)
+              + m3r[2] * z + m3r[3])
+        num = (m2r[0] * (x * sxw - 1.0) + m2r[1] * (y * syw - 1.0)
+               + m2r[2] * z + m2r[3])
+        return num / jnp.where(jnp.abs(iw) > 1e-30, iw, 1.0)
+
+    rng = np.random.default_rng(12)
+    x = rng.uniform(-200, 2200, 20000).astype(np.float32)
+    y = rng.uniform(-200, 1300, 20000).astype(np.float32)
+    z = rng.uniform(-1, 1, 20000).astype(np.float32)
+    m = rng.standard_normal(8).astype(np.float32)
+    want = np.asarray(jax.jit(zm_of)(x, y, z, m[:4], m[4:]))
+    c = trs._Consts.of(trs.ScanGeometry.of(width, height, 9, 9,
+                                           trs.ScanConfig()))
+    t = [torch.tensor(v) for v in m]
+    got = trs._model_z(torch.from_numpy(x), torch.from_numpy(y),
+                       torch.from_numpy(z), t[:4], t[4:],
+                       torch.tensor(c.sxw), torch.tensor(c.syw))
+    np.testing.assert_array_equal(_np(got), want)

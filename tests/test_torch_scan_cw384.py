@@ -68,10 +68,10 @@ def jax_config():
 
 
 @functools.lru_cache(maxsize=None)
-def run_jax():
-    """(frames (2, H, W, 4) uint8, prep integers) of the JAX kernel."""
+def run_jax(cfg):
+    """(frames (2, H, W, 4) uint8, table width, prep integers) of the JAX
+    kernel at ``cfg``."""
     vg, _, mvps = wide_scene()
-    cfg = jax_config()
     win, w0, bounds, canch, mid, _ = jrs._prep_scan_batched(
         jnp.asarray(mvps), jnp.asarray(vg), W, H, cfg)
     minv = np.linalg.inv(mvps.astype(np.float64))
@@ -87,9 +87,9 @@ def run_jax():
     return jrs.unpack_raw_frames(out, W, H), win.shape[3], ints
 
 
-def run_port():
+def run_port(jax_cfg):
     vg, _, mvps = wide_scene()
-    cfg = convert.scan_config_from_dict(dataclasses.asdict(jax_config()))
+    cfg = convert.scan_config_from_dict(dataclasses.asdict(jax_cfg))
     n_r, n_c = vg.shape[:2]
     g = trs.ScanGeometry.of(W, H, n_r, n_c, cfg)
     prep = trs.prep_scan(torch.from_numpy(mvps), torch.from_numpy(vg), W, H,
@@ -107,7 +107,7 @@ def run_port():
     return trs.unpack_raw_frames(torch.stack(frames), W, H), ints
 
 
-def oracle_columns(k, cols):
+def oracle_columns(k, cols, edge_cull_threshold=None):
     """The oracle's frame k, exact in the pixel columns ``cols``: only the
     triangles whose projected x-extent reaches them are drawn."""
     vg, uvg, mvps = wide_scene()
@@ -124,23 +124,24 @@ def oracle_columns(k, cols):
         keep |= (lo <= c + 1.0) & (hi >= c)
     return raster_reference.rasterize_reference(
         verts, uvg.reshape(-1, 2), tris[keep].reshape(-1), mvps[k], checker(),
-        W, H)
+        W, H, edge_cull_threshold=edge_cull_threshold)
 
 
-def test_cw384_windows_counted_against_jax():
-    want, cl, want_ints = run_jax()
-    got, got_ints = run_port()
-    cfg = jax_config()
+def windows_against_jax(cfg, label):
+    """Frames of the port and of the JAX kernel at ``cfg`` on the wide
+    scene, held to this file's bars -> (pixels > 1 LSB apart, those where
+    the oracle agrees with the port, those where it agrees with JAX)."""
+    want, cl, want_ints = run_jax(cfg)
+    got, got_ints = run_port(cfg)
     assert min(cfg.cw + 128, cl) // 128 >= 4   # the two-subtable regime
     for name, a, b in zip(("w0", "bounds", "canch", "mid"), got_ints,
                           want_ints):
         np.testing.assert_array_equal(a.astype(np.int64), b.astype(np.int64),
                                       err_msg=name)
-    assert (want_ints[3] >= 0).any() and (want_ints[3] == -1).any()
     p, off, n_diff = frame_stats(got, want)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(-1)
-    print(f"cw=384: PSNR {p:.2f} dB, {int((diff > 1).sum())} of {diff.size} "
-          f"pixels > 1 LSB ({off:.5%}), {n_diff} differ")
+    print(f"{label}: PSNR {p:.2f} dB, {int((diff > 1).sum())} of "
+          f"{diff.size} pixels > 1 LSB ({off:.5%}), {n_diff} differ")
     assert got.shape == want.shape == (2, H, W, 4)
     assert (got[..., :3].max(axis=-1) > 0).mean() > 0.5
     assert off <= 0.001
@@ -149,7 +150,8 @@ def test_cw384_windows_counted_against_jax():
         ys, xs = np.nonzero(diff[k] > 1)
         if len(xs) == 0:
             continue
-        ref = oracle_columns(k, np.unique(xs)).astype(np.int32)
+        ref = oracle_columns(k, np.unique(xs),
+                             cfg.edge_cull_threshold).astype(np.int32)
         port_err = np.abs(got[k].astype(np.int32) - ref).max(-1)[ys, xs]
         jax_err = np.abs(want[k].astype(np.int32) - ref).max(-1)[ys, xs]
         port_right += int((port_err <= 8).sum())
@@ -158,4 +160,12 @@ def test_cw384_windows_counted_against_jax():
                                                xs[port_err > 8]))
     print(f"of the pixels > 1 LSB apart, the oracle agrees with the port at "
           f"{port_right} and with JAX at {jax_right}")
+    return int((diff > 1).sum()), port_right, jax_right
+
+
+def test_cw384_windows_counted_against_jax():
+    cfg = jax_config()
+    mid = run_jax(cfg)[2][3]
+    assert (mid >= 0).any() and (mid == -1).any()   # narrow and wide
+    _, port_right, _ = windows_against_jax(cfg, "cw=384")
     assert port_right > 0   # the windows bind on this scene

@@ -12,12 +12,19 @@ the bands a pass renders, attributes, packed pixels and raster z. Built with
 contracts nothing, as nvcc with ``--fmad=false`` does not; ``fmaf`` is the C
 library's correctly rounded one.
 
-Only the kernel paths of the fidelity tiers run here: the colfix K = 3
-cascade, the dual-column records of the quality tier's pass 1 and the sparse
-bands of the patch tier's pass 2. The rest, and the tiers' frames, are held
-against the twins on the card (``test_torch_gpu``, ``test_torch_tiers_gpu``).
+Only the kernel paths of the fidelity tiers and of big_grid run here: the
+colfix K = 3 cascade, the dual-column records of the quality tier's pass 1,
+the sparse bands of the patch tier's pass 2, the edge cull in the standard
+variant (``--edge-cull`` at d <= 10), big_grid with edge culling at
+BASELINE preset 4's knobs, and big_grid's chunked march (a fetch window of
+five 128-column chunks) with hyps 2, the K = 3 fan, the cull and the
+wireframe coverage. The rest, and the tiers' frames, are held against the
+twins on the card (``test_torch_gpu``, ``test_torch_tiers_gpu``,
+``test_torch_big_grid_gpu``).
 
-Scene: the card-only tests' seeded d7 scene (``test_torch_gpu``), 128x96.
+Scene: the card-only tests' seeded d7 scene (``test_torch_gpu``), 128x96;
+for the chunked march its depth map at density 9 with every fourth grid row
+kept (129 x 513), 512x96, the yawed view.
 What this cannot show: that nvcc builds the file for ``sm_90a`` and how fast
 it runs; the card tests and ``chip_smoke.py`` do.
 """
@@ -175,14 +182,18 @@ def scene_inputs():
             mesh.texture.image)
 
 
-@pytest.mark.parametrize("over", [dict(hyps=1, colfix=3), dict(quality=True)],
-                         ids=["colfix3", "quality-pass1-dualcol"])
+@pytest.mark.parametrize("over", [
+    dict(hyps=1, colfix=3), dict(quality=True),
+    dict(hyps=1, colfix=1, edge_cull_threshold=0.25),
+    dict(big_grid=True, rmax=48, colfix=1, hyps=1, sr=10, off=4, dmax=5,
+         edge_cull_threshold=0.25),
+], ids=["colfix3", "quality-pass1-dualcol", "edge-cull", "big-grid-edge-cull"])
 def test_kernels_equal_twins(emulated, over):
     _, mvps, vgrid, texture = scene_inputs()
     cfg = rs.suggest_scan_config(N, W, H, **over)
     if cfg.row_edge:
         cfg = rs.tier_configs(cfg, N, N, W, H)[0]
-    # colfix 3 alone marches as the single pass does: no raster-z plane.
+    # The single pass marches without the raster-z plane.
     covered = check_pass(emulated, cfg, mvps, vgrid, texture, W, H,
                          raster_z=cfg.dual_col)
     assert min(covered) > 0.3
@@ -204,3 +215,29 @@ def test_sparse_bands_equal_twins(emulated):
                          mesh.texture.image.transpose(0, 1).contiguous(), H,
                          W, gates=(bflag, blkflag))
     assert min(covered) > 0.1
+
+
+def test_chunked_big_grid_equals_twins(emulated):
+    """big_grid's chunked march (fetch window 640: five chunks), with the
+    second hypothesis, the K = 3 fan, the edge cull and the wireframe
+    coverage, on one frame of a 129 x 513 grid at 512x96."""
+    mesh = scene_mesh(density=9)
+    vgrid = mesh.vertices.reshape(513, 513, 3)[::4].contiguous()
+    width = 512
+    mvps = scene_mvps(width)[1:]
+    cfg = rs.suggest_scan_config(513, width, H, big_grid=True, cw=512,
+                                 rmax=48, colfix=3, hyps=2, sr=12, off=5,
+                                 dmax=None, edge_cull_threshold=0.25)
+    g = rs.ScanGeometry.of(width, H, 129, 513, cfg)
+    assert g.cl == 640 and min(cfg.cw + 128, g.cl) // 128 == 5
+    prep = rs.prep_scan(mvps, vgrid, width, H, cfg)
+    args = (prep.win[0], prep.w0[0], prep.bounds[0])
+    rec = rs.solve_records(*args, g, cfg)
+    assert torch.equal(rec, rs.solve_records_plain(*args, g, cfg))
+    margs = args + (prep.canch[0], prep.mid[0], rs.minv_rows(mvps)[0], g, cfg)
+    wire = rs.march_exact(rec, *margs, wire=True)
+    solid = rs.march_exact(rec, *margs)
+    assert torch.equal(wire, rs.march_exact_plain(rec, *margs, wire=True))
+    assert torch.equal(solid[:3], wire[:3])
+    assert 0.05 < float(wire[3].mean()) < float(solid[3].mean())
+    assert rs.LAUNCHES == {"solve": 1, "march": 2, "shade": 0}

@@ -68,8 +68,10 @@ def jax_tier_configs(config):
 
 
 def jax_quality_configs():
-    """(config, cfg1, cfg2) of JAX's quality pipeline, pass 2 at
-    pack_xy=False (pass 1 inherits it from ``config``)."""
+    """(config, cfg1, cfg2) of JAX's quality pipeline: cfg1 and cfg2 are
+    what JAX's own ``render_frames_scan_quality`` derives for ``config`` and
+    hands its passes (:func:`jax_tier_configs`, no copy of its derivation),
+    pass 2 then set to pack_xy=False (pass 1 inherits it from ``config``)."""
     cfg = dataclasses.replace(jrs.suggest_scan_config(N, W, H, quality=True),
                               pack_xy=False)
     cfg1, cfg2 = jax_tier_configs(cfg)
