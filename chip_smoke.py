@@ -68,6 +68,21 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    as bench.py renders 4K/d12 (PSNR, shares, holes), then the scan frame
    and that control on 16 rows against the float64 oracle.
 
+9. ``probes``: the probe kernels of ``csrc/probes.cu`` (the TPU probes of
+   ``experiments/``, ROADMAP K3). ``probes_vs_plain``: every case of
+   ``depthrenderer_tpu_torch.probes`` (40), kernel against twin bit for bit
+   at the case's check trip count. Then the launch counters are set to 0
+   and ``python -m depthrenderer_tpu_torch.probes``'s runner times every
+   case (one ``[probe]`` line each: ns per lookup from the slope between
+   two trip counts, lookups/s, blocks, SMs and the bound) with ``--quick``:
+   it skips the two long counts, gather_probe9's 65,536 trips (timed at
+   2,048 and 8,192) and gather_probe10's 65,536 (its 1,024 / 8,192 pair
+   gives the slope); every kernel must have launched. For the JSON line
+   each kernel's numbers are one case's at its check trips: gather_accum
+   ``gp1_lane`` (gather_probe.py's lane gather, 256 trips), roll_accum
+   ``gp5_roll``, onehot_dot ``gp1_onehot``, transpose ``spm_p1_transpose``
+   (library: ``x.t().contiguous()``), march_top2 ``spm_p2_march``.
+
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
 run's data needs over 67 TFLOP/s (float32 outside the tensor cores), the
@@ -124,6 +139,13 @@ KERNELS = {
     "pairs": ("depthrenderer_tpu_torch/csrc/pair.cu",
               "depthrenderer_tpu/ops/raster_pallas.py:184"),
 }
+# The probe kernels (csrc/probes.cu) and the case whose numbers each one's
+# JSON entry carries; their "replaces" lists every experiments/ pallas_call
+# site the kernel stands for (from the case registry).
+PROBE_KERNELS = {"gather_accum": "gp1_lane", "roll_accum": "gp5_roll",
+                 "onehot_dot": "gp1_onehot", "transpose": "spm_p1_transpose",
+                 "march_top2": "spm_p2_march"}
+PROBE_REPS = 10
 
 
 def phase(name, **fields):
@@ -209,7 +231,7 @@ def check_outputs(result, frames):
 def build_all():
     """Build every kernel source and the encoders, all started together;
     -> {name: seconds}."""
-    from depthrenderer_tpu_torch import native
+    from depthrenderer_tpu_torch import native, probes
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.ops import tiled
 
@@ -219,7 +241,7 @@ def build_all():
         return time.perf_counter() - t0
 
     jobs = {"scan": rs.build_kernels, "pair": tiled.build_kernels,
-            "frameops": native.build}
+            "probes": probes.build_kernels, "frameops": native.build}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futures = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
         return {k: f.result() for k, f in futures.items()}
@@ -1023,6 +1045,96 @@ def big_grid_path(dev, tmp):
                             EDGE_CULL))
 
 
+def probe_cost(case, ins, out, trips):
+    """(bytes, float32 operations) of one probe launch at ``trips``: inputs
+    read once, the output written once; one add per lookup (gathers,
+    roll), two operations per multiply-add (onehot_dot's dense one-hot
+    product), a subtract and a multiply per (row, pixel, column) for
+    march_top2, none for the transpose."""
+    from depthrenderer_tpu_torch import probes
+
+    moved = nbytes(*ins.values(), out)
+    if case.kernel == "transpose":
+        return moved, 0
+    if case.kernel == "onehot_dot":
+        return moved, 2 * probes.bound_work(case)[0] * trips
+    if case.kernel == "march_top2":
+        return moved, probes.bound_work(case)[0] * trips
+    return moved, probes.lookups_per_trip(case) * trips
+
+
+def probes_phase(dev):
+    """Phase 9: the probe kernels against their twins, then the probes'
+    runner over every case with the launch counters around it."""
+    from depthrenderer_tpu_torch import probes
+    from depthrenderer_tpu_torch.probes.__main__ import (check_case,
+                                                         device_inputs, run)
+
+    checked, errs = {}, dict.fromkeys(probes.KERNEL_NAMES, 0.0)
+    for case in probes.CASES.values():
+        ins = device_inputs(case, dev)
+        res = check_case(case, ins)
+        if not res["equal"]:
+            raise AssertionError(f"probe {case.name}: kernel and twin differ "
+                                 f"(max abs {res['max_abs_err']})")
+        errs[case.kernel] = max(errs[case.kernel], res["max_abs_err"])
+        checked[case.name] = (res, ins)
+    phase("probes_vs_plain", cases=len(checked), all_equal=True,
+          plain_s=f"{sum(r['plain_ms'] for r, _ in checked.values()) / 1e3:.2f}")
+
+    probes.reset_launch_counts()
+    timed = {r["name"]: r for r in run(list(probes.CASES.values()), "cuda",
+                                       quick=True, check=False,
+                                       reps=PROBE_REPS)}
+    launches = dict(probes.LAUNCHES)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"probe kernel {name} never launched on "
+                                 "the probes' runner")
+    out = {}
+    for kernel, name in PROBE_KERNELS.items():
+        case = probes.CASES[name]
+        res, ins = checked[name]
+        trips = res["check_trips"]
+        moved, ops = probe_cost(case, ins,
+                                probes.run_case(case, ins, trips), trips)
+        b_ms, b_by = bound(moved, ops)
+        out[kernel] = {"max_abs_err": errs[kernel], "ms": res["check_ms"],
+                       "plain_ms": res["plain_ms"], "bound_ms": b_ms,
+                       "bound_by": b_by,
+                       "library_ms": timed[name].get("library_ms")}
+    phase("probes", cases=len(timed), launches=json.dumps(launches),
+          **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in out.items()},
+          **{f"{k}_bound_ms": f"{v['bound_ms']:.6f}" for k, v in out.items()})
+    return out, launches
+
+
+def kernel_table(results, launches):
+    """The JSON kernel table: every kernel's source, the TPU kernel it
+    replaces (the probe kernels: every experiments/ site of their cases),
+    launches on the main path and this run's numbers."""
+    from depthrenderer_tpu_torch import probes
+
+    kernels = dict(KERNELS, **{
+        k: ("depthrenderer_tpu_torch/csrc/probes.cu",
+            ", ".join(sorted({c.site for c in probes.cases_of(k)})))
+        for k in PROBE_KERNELS})
+
+    def rounded(v, n):
+        return None if v is None else round(v, n)
+
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": kernels[name][0],
+         "replaces": kernels[name][1], "launches": launches[name],
+         "max_abs_err": results[name]["max_abs_err"],
+         "ms": rounded(results[name]["ms"], 6),
+         "plain_ms": rounded(results[name]["plain_ms"], 3),
+         "bound_ms": rounded(results[name]["bound_ms"], 6),
+         "bound_by": results[name]["bound_by"],
+         "library_ms": rounded(results[name].get("library_ms"), 6)}
+        for name in kernels]}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=300,
@@ -1084,19 +1196,15 @@ def main(argv=None):
         t0 = time.perf_counter()
         big_grid_path(dev, tmp)
         seconds["big_grid_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        probe_results, probe_launches = probes_phase(dev)
+        results.update(probe_results)
+        seconds["probes"] = time.perf_counter() - t0
     phase("seconds", **{k: f"{v:.1f}" for k, v in seconds.items()},
           total=f"{time.perf_counter() - t_all:.1f}")
 
-    launches = dict(scan_launches, pairs=pair_launches)
-    print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNELS[name][0],
-         "replaces": KERNELS[name][1], "launches": launches[name],
-         "max_abs_err": results[name]["max_abs_err"],
-         "ms": round(results[name]["ms"], 4),
-         "plain_ms": round(results[name]["plain_ms"], 2),
-         "bound_ms": round(results[name]["bound_ms"], 4),
-         "bound_by": results[name]["bound_by"], "library_ms": None}
-        for name in ("solve", "march", "shade", "pairs")]}), flush=True)
+    launches = dict(scan_launches, pairs=pair_launches, **probe_launches)
+    print(json.dumps(kernel_table(results, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

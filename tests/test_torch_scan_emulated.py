@@ -96,38 +96,40 @@ inline bool __syncthreads_or(bool b) {
 }
 template <class F>
 void emulated_launch(dim3 grid, dim3 block, F body) {
-  for (unsigned by = 0; by < grid.y; ++by)
-    for (unsigned bx = 0; bx < grid.x; ++bx) {
-      BlockSync sync(block.x * block.y);
-      g_block = &sync;
-      std::vector<std::thread> threads;
-      for (unsigned ty = 0; ty < block.y; ++ty)
-        for (unsigned tx = 0; tx < block.x; ++tx)
-          threads.emplace_back([&, bx, by, tx, ty] {
-            blockIdx = {bx, by, 0};
-            threadIdx = {tx, ty, 0};
-            blockDim = block;
-            t_calls = 0;
-            body();
-          });
-      for (auto& t : threads) t.join();
-    }
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        BlockSync sync(block.x * block.y);
+        g_block = &sync;
+        std::vector<std::thread> threads;
+        for (unsigned ty = 0; ty < block.y; ++ty)
+          for (unsigned tx = 0; tx < block.x; ++tx)
+            threads.emplace_back([&, bx, by, bz, tx, ty] {
+              blockIdx = {bx, by, bz};
+              threadIdx = {tx, ty, 0};
+              blockDim = block;
+              t_calls = 0;
+              body();
+            });
+        for (auto& t : threads) t.join();
+      }
 }
 """
 
 
-def emulated_source(src: str) -> str:
-    """scan.cu with the runtime header swapped for the emulation and each
-    ``kernel<<<grid, block, 0, stream>>>(args);`` turned into
-    ``emulated_launch(grid, block, [&] { kernel(args); });``."""
+def emulated_source(src: str, launches: int = 3) -> str:
+    """A CUDA source (scan.cu unless told otherwise) with the runtime
+    header swapped for the emulation and each ``kernel<<<grid, block,
+    smem, stream>>>(args);`` turned into ``emulated_launch(grid, block,
+    [&] { kernel(args); });`` (the emulation's shared memory is its own)."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
     src, n = re.subn(
-        r"(\w+)<<<\s*(.*?),\s*(\w+),\s*0,\s*\(cudaStream_t\)stream\s*>>>"
+        r"(\w+)<<<\s*(.*?),\s*(\w+),\s*\w+,\s*\(cudaStream_t\)stream\s*>>>"
         r"\((.*?)\);\n",
         lambda m: (f"emulated_launch({m.group(2)}, {m.group(3)}, [&] {{ "
                    f"{m.group(1)}({m.group(4)}); }});\n"),
         src, flags=re.S)
-    assert n == 3, n
+    assert n == launches, n
     return src
 
 
