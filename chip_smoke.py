@@ -28,6 +28,12 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    over 32 frames into an MJPG AVI, with the pair kernel's launch counter set
    to 0 just before and read just after; the count must be the number of
    frame groups of the checked config.
+   ``d13_fallback_path``: ``cli.render_scene -mesh-density 13
+   --frame-batch 1`` (auto impl) at 1080p over 4 frames: past the scan's
+   budget it must log the reference's NOTICE and render through the tiled
+   route, the pair kernel launched and no scan kernel (launch counters set
+   to 0 before, read after); whether the tiled route warned that its
+   window drops candidates is printed, and the peak device memory.
 6. ``control``: ``render_frame_grid_exact`` (the lossless control, grid
    route, 2 strips as bench.py renders 1080p/d10) at sway frame 0: its row
    anchors and seconds, and the PSNR, the share of pixels off by more than 1
@@ -94,6 +100,8 @@ it exits 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import subprocess
 import sys
@@ -119,10 +127,11 @@ TIERS = {"quality": (["--quality"], {"quality": True}),
 # check's 1080p/d11 config.
 BIG_WIDTH, BIG_HEIGHT, BIG_DENSITY, BIG_FRAMES = 3840, 2160, 12, 16
 EDGE_CULL, CHECK_DENSITY, BIG_CONTROL_STRIPS = 0.25, 11, 16
+# Past the scan's budget: the d13 CLI run, which falls back to the tiled
+# route as the reference does.
+D13_DENSITY, D13_FRAMES = 13, 4
 # Bands of the 4K/d12 march twin, and pixel rows of the float64 oracle.
 MARCH_BANDS, ORACLE_ROWS = 6, 16
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # The control's strips at 1080p/d10, as bench.py renders it; a "flip" is a
 # pixel off by more than 8 LSB, bench.py's winner-flip measure.
 CONTROL_STRIPS = 2
@@ -179,13 +188,6 @@ def wall_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
-
-
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the card's least time for this work."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def nbytes(*tensors):
@@ -247,35 +249,22 @@ def build_all():
         return {k: f.result() for k, f in futures.items()}
 
 
-def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False):
-    """Bytes and operations of the three scan kernels on frame i; with a
-    band flag (sparse bands) the records, the window and the attributes
-    read count only the flagged bands' share. The attributes are 4 planes;
-    ``with_z`` (the tiers' passes): the march also writes the raster-z
-    plane, and the shade reads it and writes the raster z. A big_grid
-    block sweeps its whole 128-aligned fetch window (``min(cw + 128,
-    CL)`` columns)."""
+def march_ptxas_fields(big):
+    """The march kernel's block shape and ptxas's report (registers, bytes
+    of spill stores and of stack) of its instances of one variant
+    (big_grid or standard), keyed by edge cull and wireframe."""
     from depthrenderer_tpu_torch.ops import raster_scan as rs
 
-    share = 1.0 if bflag is None else float(bflag.float().mean())
-    rec = g.nbands * cfg.nbr * cfg.nrec * 8 * g.cl * 4 * share
-    attrs = rs.n_attrs(with_z) * g.hpad * g.wl * 4
-    ints = nbytes(prep.w0[i], prep.bounds[i])
-    win = nbytes(prep.win[i]) * share
-    solve = (win + ints + rec, 2 * 8 * 128 * g.nchunks * g.nbands * share)
-    # The march sweeps, per pixel, the slot-0 record columns of its block's
-    # march window (128 narrow, cw wide, none when skipped): two comparisons
-    # each. The exact tests and colfix come on top, uncounted.
-    mid = prep.mid[i].long()
-    wide = min(cfg.cw + 128, g.cl) if cfg.big_grid else cfg.cw
-    cols = torch.where(mid >= 0, 128, torch.where(mid == -1, wide, 0))
-    if bflag is not None:
-        cols = cols.reshape(g.nbands, g.nblk) * bflag.long()[:, None]
-    march = (rec + win + nbytes(prep.canch[i], prep.mid[i]) + ints + attrs,
-             2 * 1024 * int(cols.sum()))
-    shade = (attrs * share + nbytes(texq)
-             + g.hpad * g.wl * 4 * (2 if with_z else 1), 0)
-    return {"solve": solve, "march": march, "shade": shade}
+    threads, pixels = rs.march_shape()
+    fields = {"block": f"{threads}_threads_x_{pixels}_pixels"}
+    for name, u in rs.march_ptxas().items():
+        big_i, cull, wire = (f == "true" for f in
+                             name[name.index("<") + 1:-1].split(", "))
+        if big_i == big:
+            fields[f"cull{int(cull)}_wire{int(wire)}"] = (
+                f"{u['registers']}regs/{u['spill_stores']}B_spill/"
+                f"{u['stack']}B_stack")
+    return fields
 
 
 def pair_bounds(planes, tc, tile_pixels):
@@ -295,6 +284,7 @@ def pair_bounds(planes, tc, tile_pixels):
 def scan_phase(scene, dev):
     """Phase 2: the scan kernels against their plain twins at 1080p/d10."""
     from depthrenderer_tpu_torch import animation, transforms
+    from depthrenderer_tpu_torch.march_times import bound, scan_bounds
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.render import clip_mvps
 
@@ -376,6 +366,7 @@ def scan_phase(scene, dev):
           prep_ms_per_frame=f"{prep_ms:.3f}",
           kernels_ms_per_frame=f"{sum(v[0] for v in ms.values()):.3f}",
           plain_ms_per_frame=f"{sum(v[1] for v in ms.values()):.1f}")
+    phase("kernel_times_march_ptxas", **march_ptxas_fields(big=False))
     errs = {"solve": max(stats["solve"]), "march": max(stats["march"]),
             "shade": float(max(stats["shade"]))}
     return {k: {"max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
@@ -463,6 +454,7 @@ def tiled_phase(scene, dev):
     run's first kernel launch: the config ``render_clip`` measures from that
     run's views, its first frame group -> (config, group, kernel fields)."""
     from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.march_times import bound
     from depthrenderer_tpu_torch.ops import raster_pallas as trp
     from depthrenderer_tpu_torch.ops import tiled
     from depthrenderer_tpu_torch.render import clip_mvps, tiled_config
@@ -568,6 +560,46 @@ def tiled_main_path(colour, depth, scene, cfg, group, tmp):
     return launches
 
 
+def d13_path(colour, depth, tmp):
+    """Phase 5, continued: ``-mesh-density 13 --frame-batch 1`` at 1080p
+    through ``cli.render_scene`` (auto impl). Past the scan's budget the CLI
+    must log the reference's NOTICE and render through the tiled route on
+    the card: the pair kernel launched, no scan kernel; the tiled route's
+    own window warning, if any, is reported. One frame a group: the tiled
+    prep holds every frame of a group's full-grid planes (~13 GB a frame at
+    d13), and the default 16-frame group runs out of the card's memory."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.ops import tiled
+
+    torch.cuda.reset_peak_memory_stats()
+    rs.reset_launch_counts()
+    tiled.reset_launch_counts()
+    captured = io.StringIO()
+    with contextlib.redirect_stdout(captured):
+        result = cli.render_scene(colour, depth, cli_args(
+            tmp / "d13", D13_FRAMES, ["--frame-batch", "1"],
+            density=D13_DENSITY))
+    log_text = captured.getvalue()
+    print(log_text, end="", flush=True)
+    launches = dict(rs.LAUNCHES, **tiled.LAUNCHES)
+    notice = ("NOTICE: grid n=8193 exceeds the scan kernel's VMEM window "
+              "budget; falling back to the tiled path" in log_text)
+    if not notice:
+        raise AssertionError("d13: the CLI did not log the fallback NOTICE")
+    if launches["pairs"] <= 0 or any(launches[k] for k in rs.LAUNCHES):
+        raise AssertionError(f"d13: launches {launches}; expected the pair "
+                             "kernel only")
+    avi, png = check_outputs(result, D13_FRAMES)
+    phase("d13_fallback_path", density=D13_DENSITY,
+          size=f"{WIDTH}x{HEIGHT}", frames=D13_FRAMES, notice=notice,
+          launches=json.dumps(launches),
+          window_warning="WARNING:" in log_text,
+          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          incl_encode_fps=f"{D13_FRAMES / result['seconds']:.3f}",
+          avi_bytes=avi, sample_png_bytes=png)
+
+
 def control_fidelity(frame, control):
     """PSNR, > 1 LSB share and > 8 LSB share (bench.py's flips) of a
     (H, W, 4) uint8 frame against the control."""
@@ -641,6 +673,7 @@ def tier_pass(label, cfg, mvp, vgrid, texture, width, height, dev,
     shades the march twin's attrs. ``gates`` (bflag, blkflag) makes the pass
     sparse. ``mode`` ``texture`` or ``wireframe`` checks a single pass
     instead (4 attribute planes, no raster z: z is None)."""
+    from depthrenderer_tpu_torch.march_times import bound, scan_bounds
     from depthrenderer_tpu_torch.ops import raster_scan as rs
 
     g = rs.ScanGeometry.of(width, height, vgrid.shape[0], vgrid.shape[1],
@@ -949,6 +982,7 @@ def big_grid_path(dev, tmp):
     render-only frames/s and peak memory, the CLI run with its launch
     counts, and frame 0 against the control and the float64 oracle."""
     from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.march_times import bound, scan_bounds
     from depthrenderer_tpu_torch.ops import raster_grid as trg
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.render import clip_mvps
@@ -990,6 +1024,7 @@ def big_grid_path(dev, tmp):
           **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()},
           **{f"{k}_bound_by": v[1] for k, v in bounds.items()},
           mesh_s=f"{mesh_s:.1f}")
+    phase("big_grid_kernel_times_march_ptxas", **march_ptxas_fields(big=True))
     if not 0.3 < covered <= 1.0:
         raise AssertionError(f"4K/d12 frame 0 covered share {covered:.3f}")
     phase("big_grid_kernels_vs_plain_4k", frame=0,
@@ -1067,6 +1102,7 @@ def probes_phase(dev):
     """Phase 9: the probe kernels against their twins, then the probes'
     runner over every case with the launch counters around it."""
     from depthrenderer_tpu_torch import probes
+    from depthrenderer_tpu_torch.march_times import bound
     from depthrenderer_tpu_torch.probes.__main__ import (check_case,
                                                          device_inputs, run)
 
@@ -1184,6 +1220,9 @@ def main(argv=None):
         pair_launches = tiled_main_path(colour, depth, scene, tiled_cfg,
                                         group, tmp)
         seconds["tiled_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        d13_path(colour, depth, tmp)
+        seconds["d13_path"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         control, scan_fid = control_phase(scene, tiled_cfg, dev)
         seconds["control"] = time.perf_counter() - t0

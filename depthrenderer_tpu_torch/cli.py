@@ -26,8 +26,8 @@ from pathlib import Path
 
 from . import animation as anim_mod
 from . import io as dio
-from . import meshgen, transforms
-from .render import _auto_impl, render_clip, resolve_device
+from . import transforms
+from .render import render_clip, resolve_device
 from .scene import Camera, Mesh, Texture
 from .utils import log
 from .writers import AsyncImageWriter, AsyncVideoWriter
@@ -91,9 +91,11 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
                         "(every route; BASELINE preset 4 uses 0.25).")
     p.add_argument("--impl", choices=("auto", "grid", "pallas", "scan"),
                    default="auto",
-                   help="Rasteriser: auto = scan; pallas = the tiled route "
-                        "(pair kernel); grid = the tiled route in the grid "
-                        "path's triangle order.")
+                   help="Rasteriser: auto = scan (past its budget, d13 "
+                        "and up, auto and scan fall back to pallas with a "
+                        "NOTICE, as the reference does); pallas = the tiled "
+                        "route (pair kernel); grid = the tiled route in the "
+                        "grid path's triangle order.")
     p.add_argument("--quality", action="store_true",
                    help="The scan's quality tier: dual-column records, "
                         "colfix 3 and a full second pass over the "
@@ -155,9 +157,6 @@ def render_scene(colour, depth, args):
     height, width = colour.shape[:2]
     out_w = args.width or width
     out_h = args.height or height
-    if args.impl in ("auto", "scan") and args.mesh_density >= 0:
-        # A grid past the scan's budget raises before it is meshed.
-        _auto_impl(meshgen.grid_vertex_count(args.mesh_density), out_w, out_h)
     texture = Texture(colour)
     mesh = Mesh.from_texture(texture, depth_map=depth,
                              density=args.mesh_density, debug=True)

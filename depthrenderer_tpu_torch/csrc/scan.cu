@@ -36,12 +36,13 @@
 // (the crossing interpolation) is an explicit fmaf here and an exact emulation
 // there.
 //
-// Launch shape: one CUDA block per 8-row band x 128-column chunk (solve) or
-// 8-row band x 128-pixel block (march): 1024 threads, thread (x, y) = one grid
-// column or pixel. The TPU kernel gates whole 8x128 blocks on block-wide
-// reductions (slot gate, hypothesis-2 gate, colfix gate, fan row bounds);
-// here they are __syncthreads_or over the same 8x128 threads, taken on
-// block-uniform control flow.
+// Launch shape: one CUDA block per 8-row band x 128-column chunk (solve,
+// 1024 threads, thread (x, y) = one grid column) or 8-row band x 128-pixel
+// block (march, 256 threads: warp y = scanline y, four pixels a lane). The
+// TPU kernel gates whole 8x128 blocks on block-wide reductions (slot gate,
+// hypothesis-2 gate, colfix gate, fan row bounds); here they are
+// __syncthreads_or over the same 8x128 pixels, taken on block-uniform
+// control flow.
 //
 // What bounds it on an H100, and what the design does about it: every pass
 // is gathers and divergent per-thread loops, not FLOPs.
@@ -50,17 +51,20 @@
 //    with dual_col): bound by record stores (~200 MB per 1080p/d10 frame at
 //    the default sr = 6). Records are written once,
 //    at the crossing, straight from the window (no ring buffer).
-//  * march sweeps cw record columns per slot (big_grid: the fetch window,
-//    640 at d11, 1024 at d12; the 128 threads of a row read the same
-//    addresses: broadcasts from L1) and then gathers 2 x 3 x sr strip
-//    values per hypothesis: bound by L1/L2 gather latency and by the register
-//    cap that 1024-thread blocks impose (64 per thread; the rest spills).
-//    Strip rows are read as the cell loop needs them instead of staged.
+//  * march: the reference sweeps every record column of the march window
+//    per pixel (cw columns; big_grid's chunked fetch window: 640 at d11,
+//    1024 at d12). Here each scanline's warp reads each column pair once
+//    (coalesced), turns it into the span of the block's pixels it brackets
+//    and scatters its packed (key, column) into a shared per-pixel minimum
+//    (atomicMin): O(columns) per scanline instead of per pixel, with the
+//    dense sweep's comparisons, ties and counts (scatter_pairs). The exact
+//    tests then gather 2 x 3 x sr strip values per hypothesis, per thread,
+//    one pixel at a time; the block's per-pixel state (the winner, the
+//    slots' fan columns) lives in shared memory, so a thread holds one
+//    pixel's working set and no instance spills.
 //  * colfix loops over a block-uniform row range, 2 to 6 fan columns per
 //    row (the K = 3 outer fan carries 6 corner columns in registers).
 //  * shade is four texel gathers per pixel.
-// Staging the band window and records in shared memory (or TMA) is later
-// work; this version is the simple, exact one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -207,55 +211,6 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return (a != a || b != b) ? __int_as_float(0x7fc00000) : fminf(a, b);
 }
 
-// One cell's exact coverage test and division-free winner fold (the JAX
-// kernel's _cell_fold): the diagonal's sign picks the triangle, the nearer
-// depth wins (cross-multiplied), ties go to the lower triangle id. CULL: the
-// picked triangle's corner model-z spread (zm00 .. zm11) must be at most
-// cull_thr; WIRE: the winner's least barycentric weight rides along.
-template <bool CULL, bool WIRE>
-__device__ __forceinline__ void cell_fold(
-    Best& b, bool cell_ok, float diag_e, float top_e, float bottom_e,
-    float left_e, float right_e, float z00, float z10, float z01, float z11,
-    float i00, float i10, float i01, float i11, float u0, float u1,
-    float v_top, float v_bot, float base_id, float inv_ncm1, float inv_nrm1,
-    float zm00, float zm10, float zm01, float zm11, float cull_thr) {
-  const bool d = diag_e >= 0.0f;
-  const float w_a = d ? diag_e : bottom_e;
-  const float w_b = d ? top_e : right_e;
-  const float w_c = d ? left_e : -diag_e;
-  const float area = (w_a + w_b) + w_c;
-  bool ok = cell_ok && (area > 1e-12f);
-  if (CULL) {
-    const float zm_a = d ? zm00 : zm01;
-    const float zm_c = d ? zm01 : zm11;
-    const float spread = nan_max(nan_max(zm_a, zm10), zm_c) -
-                         nan_min(nan_min(zm_a, zm10), zm_c);
-    ok = ok && spread <= cull_thr;
-  }
-  const bool inside = (d && top_e >= 0.0f && left_e >= 0.0f) ||
-                      (!d && bottom_e >= 0.0f && right_e >= 0.0f);
-  const float z_a = d ? z00 : z01;
-  const float z_c = d ? z01 : z11;
-  const float znum = (w_a * z_a + w_b * z10) + w_c * z_c;
-  const bool cov = ok && inside && (znum >= -area) && (znum <= area);
-  const float tid = base_id + (d ? 0.0f : 1.0f);
-  const float c_l = znum * b.ar;
-  const float c_r = b.zn * area;
-  if (cov && ((c_l < c_r) || ((c_l == c_r) && (tid < b.id)))) {
-    const float p_a = w_a * (d ? i00 : i01);
-    const float p_b = w_b * i10;
-    const float p_c = w_c * (d ? i01 : i11);
-    const float iw = (p_a + p_b) + p_c;
-    b.zn = znum;
-    b.ar = area;
-    b.id = tid;
-    b.uw = (d ? u0 : u1) * iw + inv_ncm1 * (d ? p_c : -p_b);
-    b.vw = (d ? v_top : v_bot) * iw + inv_nrm1 * (d ? -p_b : p_a);
-    b.iw = iw;
-    if (WIRE) b.ml = fminf(w_a, fminf(w_b, w_c));
-  }
-}
-
 __device__ __forceinline__ float inv_w_of(const ScanParams& p, float x,
                                           float y, float z) {
   return ((p.m3[0] * (x * p.sxw - 1.0f) + p.m3[1] * (y * p.syw - 1.0f)) +
@@ -275,84 +230,237 @@ __device__ __forceinline__ float model_z(const ScanParams& p, float x,
   return num / (fabsf(iw) > 1e-30f ? iw : 1.0f);
 }
 
-// Bracket sweep over the column pairs (lo + c, lo + c + 1), c = 0 ..
-// npair - 1, of one scanline's records: the first c of the nearest hit (0
-// when no hit has a key below FAR), its key, and the hit count. ``skip``
-// leaves one c out of the minimum (the second hypothesis).
-__device__ void sweep(const float* sxr, const float* zcr, int lo, int npair,
-                      float qx, int skip, int& o, float& m, int& cnt) {
-  float best = kFar;
-  int bi = 0, count = 0;
-  for (int c = 0; c < npair; ++c) {
-    const float a = sxr[lo + c];
-    const float an = sxr[lo + c + 1];
-    const bool hit = qx >= fminf(a, an) && qx <= fmaxf(a, an);
-    const float key = (hit && c != skip) ? zcr[lo + c] : kFar;
-    if (key < best) {
-      best = key;
-      bi = c;
-    }
-    count += hit ? 1 : 0;
+// A grid corner's projected position and depth.
+struct Corner {
+  float x, y, z;
+};
+
+// One cell's exact coverage test and division-free winner fold (the JAX
+// kernel's _cell_fold): the diagonal's sign picks the triangle, the nearer
+// depth wins (cross-multiplied), ties go to the lower triangle id. CULL: the
+// picked triangle's corner model-z spread must be at most cull_thr; WIRE:
+// the winner's least barycentric weight rides along. Corners 00 / 01 are
+// the cell's top row (left / right), 10 / 11 its bottom row. A corner's 1/w
+// and model z are computed only where a covered pixel needs them (the same
+// float operations as the reference's planes, so the same values).
+template <bool CULL, bool WIRE>
+__device__ __forceinline__ void cell_fold(
+    const ScanParams& p, Best& b, bool cell_ok, float diag_e, float top_e,
+    float bottom_e, float left_e, float right_e, const Corner& c00,
+    const Corner& c10, const Corner& c01, const Corner& c11, float u0,
+    float u1, float v_top, float v_bot, float base_id) {
+  const bool d = diag_e >= 0.0f;
+  const bool inside = (d && top_e >= 0.0f && left_e >= 0.0f) ||
+                      (!d && bottom_e >= 0.0f && right_e >= 0.0f);
+  if (!(cell_ok && inside)) return;
+  const float w_a = d ? diag_e : bottom_e;
+  const float w_b = d ? top_e : right_e;
+  const float w_c = d ? left_e : -diag_e;
+  const float area = (w_a + w_b) + w_c;
+  const Corner& ca = d ? c00 : c01;  // the picked triangle's corners a, c
+  const Corner& cc = d ? c01 : c11;  // (and 10)
+  bool ok = area > 1e-12f;
+  if (CULL) {
+    const float zm_a = model_z(p, ca.x, ca.y, ca.z);
+    const float zm_b = model_z(p, c10.x, c10.y, c10.z);
+    const float zm_c = model_z(p, cc.x, cc.y, cc.z);
+    const float spread = nan_max(nan_max(zm_a, zm_b), zm_c) -
+                         nan_min(nan_min(zm_a, zm_b), zm_c);
+    ok = ok && spread <= p.cull_thr;
   }
-  o = bi;
-  m = best;
-  cnt = count;
+  const float znum = (w_a * ca.z + w_b * c10.z) + w_c * cc.z;
+  const bool cov = ok && (znum >= -area) && (znum <= area);
+  const float tid = base_id + (d ? 0.0f : 1.0f);
+  const float c_l = znum * b.ar;
+  const float c_r = b.zn * area;
+  if (cov && ((c_l < c_r) || ((c_l == c_r) && (tid < b.id)))) {
+    const float p_a = w_a * inv_w_of(p, ca.x, ca.y, ca.z);
+    const float p_b = w_b * inv_w_of(p, c10.x, c10.y, c10.z);
+    const float p_c = w_c * inv_w_of(p, cc.x, cc.y, cc.z);
+    const float iw = (p_a + p_b) + p_c;
+    b.zn = znum;
+    b.ar = area;
+    b.id = tid;
+    b.uw = (d ? u0 : u1) * iw + p.inv_ncm1 * (d ? p_c : -p_b);
+    b.vw = (d ? v_top : v_bot) * iw + p.inv_nrm1 * (d ? -p_b : p_a);
+    b.iw = iw;
+    if (WIRE) b.ml = fminf(w_a, fminf(w_b, w_c));
+  }
+}
+
+// The march's launch shape: one block per 8-row band x 128-pixel block (the
+// reference's gate unit), 256 threads; warp y is scanline y, and lane l
+// holds pixels l, l + 32, l + 64 and l + 96 of it.
+constexpr int kMarchThreads = 256;
+constexpr int kMarchPix = 4;  // pixels per thread
+constexpr unsigned long long kNoHit = ~0ull;  // an empty sweep minimum
+
+// The block's per-pixel march state in shared memory: each thread reads and
+// writes its own pixels' entries, but the sweep's minima, which every lane
+// of a scanline's warp scatters into.
+template <bool WIRE>
+struct MarchShared {
+  unsigned long long best[8][128];  // sweep minimum: packed (key, column)
+  unsigned hit1[8][4];              // pixels hit once so far (hyps 2)
+  short skip[8][128];               // the second sweep's excluded column
+  short fix[4][8][128];             // per slot: the fan's column j0, or -1
+  float b[WIRE ? 7 : 6][8][128];    // the winner (Best, field-major)
+};
+
+template <bool WIRE>
+__device__ __forceinline__ Best load_best(const MarchShared<WIRE>& sm, int y,
+                                          int x) {
+  Best b;
+  b.zn = sm.b[0][y][x];
+  b.ar = sm.b[1][y][x];
+  b.id = sm.b[2][y][x];
+  b.uw = sm.b[3][y][x];
+  b.vw = sm.b[4][y][x];
+  b.iw = sm.b[5][y][x];
+  b.ml = WIRE ? sm.b[WIRE ? 6 : 0][y][x] : 0.0f;
+  return b;
+}
+
+template <bool WIRE>
+__device__ __forceinline__ void store_best(MarchShared<WIRE>& sm, int y, int x,
+                                           const Best& b) {
+  sm.b[0][y][x] = b.zn;
+  sm.b[1][y][x] = b.ar;
+  sm.b[2][y][x] = b.id;
+  sm.b[3][y][x] = b.uw;
+  sm.b[4][y][x] = b.vw;
+  sm.b[5][y][x] = b.iw;
+  if (WIRE) sm.b[WIRE ? 6 : 0][y][x] = b.ml;
+}
+
+// A sweep key below FAR and its column, packed so that the least value is
+// the nearest key's first column: the float's bits mapped to an unsigned
+// order (-0 taken as +0, which ``key < best`` cannot tell apart) above the
+// column.
+__device__ __forceinline__ unsigned long long sweep_key(float key, int col) {
+  unsigned u = __float_as_uint(key == 0.0f ? 0.0f : key);
+  u = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+  return ((unsigned long long)u << 32) | (unsigned)col;
+}
+
+__device__ __forceinline__ float sweep_key_value(unsigned long long v) {
+  const unsigned u = (unsigned)(v >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// The pixels of a block that a record column pair brackets: the first and
+// last x in [0, 127] with lo <= qx0 + x <= hi (qx0 = the block's first
+// pixel centre; every qx0 + x is exact, so these are the dense sweep's own
+// comparisons qx >= lo && qx <= hi). A candidate from the float difference
+// is stepped to the exact edge. False when no pixel centre is bracketed
+// (also for NaN bounds: fminf / fmaxf give NaN only when both columns are).
+__device__ __forceinline__ bool pair_span(float lo, float hi, float qx0,
+                                          int& x0, int& x1) {
+  if (!(lo <= qx0 + 127.0f) || !(hi >= qx0)) return false;
+  int a = 0;
+  if (lo > qx0) {
+    a = (int)ceilf(lo - qx0);  // lo - qx0 in (0, 127]
+    while (a > 0 && qx0 + (float)(a - 1) >= lo) --a;
+    while (qx0 + (float)a < lo) ++a;
+  }
+  int b = 127;
+  if (hi < qx0 + 127.0f) {
+    b = (int)floorf(hi - qx0);  // hi - qx0 in [0, 127)
+    while (b < 127 && qx0 + (float)(b + 1) <= hi) ++b;
+    while (qx0 + (float)b > hi) --b;
+  }
+  x0 = a;
+  x1 = b;
+  return a <= b;
+}
+
+// The reference's bracket sweep of one scanline as an interval scatter:
+// each column pair (base + j, base + j + 1), j = 0 .. n - 1, read once by
+// one lane of the scanline's warp, offers its key zc[base + j] at column
+// tag0 + j to every pixel it brackets (an empty neighbour, sx = FAR, makes
+// the span run to the block's edge); a key below FAR is a candidate (NaN is
+// not), and the per-pixel minimum of sweep_key is the dense sweep's nearest
+// hit with ties to the first column. SKIP leaves out each pixel's skipped
+// column (the second hypothesis). COUNT marks pixels as hit, candidates or
+// not; returns whether this thread saw a pixel hit a second time.
+template <bool SKIP, bool COUNT, bool WIRE>
+__device__ bool scatter_pairs(MarchShared<WIRE>& sm, const float* sxr,
+                              const float* zcr, int base, int n, int tag0,
+                              float qx0, int y, int lane) {
+  bool multi = false;
+  for (int j = lane; j < n; j += 32) {
+    const float a = sxr[base + j];
+    const float an = sxr[base + j + 1];
+    int x0, x1;
+    if (!pair_span(fminf(a, an), fmaxf(a, an), qx0, x0, x1)) continue;
+    const float key = zcr[base + j];
+    const bool cand = key < kFar;
+    if (!COUNT && !cand) continue;
+    const int col = tag0 + j;
+    const unsigned long long v = sweep_key(key, col);
+    for (int x = x0; x <= x1; ++x) {
+      if (cand && (!SKIP || sm.skip[y][x] != col))
+        atomicMin(&sm.best[y][x], v);
+      if (COUNT) {
+        const unsigned bit = 1u << (x & 31);
+        if (atomicOr(&sm.hit1[y][x >> 5], bit) & bit) multi = true;
+      }
+    }
+  }
+  return multi;
 }
 
 // The reference's chunked march, for a march window of 4 or more 128-column
 // chunks: per chunk of the window [ws, ws + mw), a block gate (some crossing
 // x over the chunk and the next chunk's first 8 columns, at any of the
 // block's 8 scanlines, at most the block's last pixel centre, and some real
-// one at least its first pixel centre - 64) and a sweep over the chunk's 128
-// pair bases (the window's last chunk: 127). Returns the first window column
-// of the nearest hit in a gated chunk (mw if none), its key and the gated
-// chunks' hit count. Block-uniform call.
-__device__ void sweep_chunked(const float* sxr, const float* zcr, int ws,
-                              int mw, int blk, float qx, int& o, float& m,
-                              int& cnt) {
-  const float qx0 = (float)(blk * 128) + 0.5f;
-  const int x = threadIdx.x;
+// one at least its first pixel centre - 64), and the chunk's 128 pair bases
+// (the window's last chunk: 127) scattered at window columns ch * 128 + j;
+// ALL scatters every chunk (the second hypothesis' dense re-sweep).
+// Block-uniform call; returns scatter_pairs' second-hit flag.
+template <bool ALL, bool SKIP, bool COUNT, bool WIRE>
+__device__ bool scatter_chunks(MarchShared<WIRE>& sm, const float* sxr,
+                               const float* zcr, int ws, int mw, float qx0,
+                               int y, int lane) {
   const int nch = mw / 128;
-  o = mw;
-  m = kFar;
-  cnt = 0;
+  bool multi = false;
   for (int ch = 0; ch < nch; ++ch) {
     const int lo = ws + ch * 128;
     const bool last = ch == nch - 1;
-    const float v = sxr[lo + x];
-    bool near = v <= qx0 + 127.0f;
-    bool real = v < kHalfFar && v >= qx0 - 64.0f;
-    if (!last && x < 8) {
-      const float w = sxr[lo + 128 + x];
-      near = near || w <= qx0 + 127.0f;
-      real = real || (w < kHalfFar && w >= qx0 - 64.0f);
+    if (!ALL) {
+      bool near = false, real = false;
+#pragma unroll
+      for (int q = 0; q < kMarchPix; ++q) {
+        const float v = sxr[lo + lane + 32 * q];
+        near = near || v <= qx0 + 127.0f;
+        real = real || (v < kHalfFar && v >= qx0 - 64.0f);
+      }
+      if (!last && lane < 8) {
+        const float w = sxr[lo + 128 + lane];
+        near = near || w <= qx0 + 127.0f;
+        real = real || (w < kHalfFar && w >= qx0 - 64.0f);
+      }
+      const bool any_near = __syncthreads_or(near);
+      const bool any_real = __syncthreads_or(real);
+      if (!(any_near && any_real)) continue;  // block-uniform
     }
-    const bool any_near = __syncthreads_or(near);
-    const bool any_real = __syncthreads_or(real);
-    if (!(any_near && any_real)) continue;  // block-uniform
-    int oc, cc;
-    float mc;
-    sweep(sxr, zcr, lo, last ? 127 : 128, qx, -1, oc, mc, cc);
-    if (mc < m) {
-      m = mc;
-      o = ch * 128 + oc;
-    }
-    cnt += cc;
+    multi = scatter_pairs<SKIP, COUNT>(sm, sxr, zcr, lo, last ? 127 : 128,
+                                       ch * 128, qx0, y, lane) || multi;
   }
+  return multi;
 }
 
-// Exact tests of the record picked by march hypothesis h (a march-window
-// column, clamped to [0, mw - 1]) and its right neighbour: with dual_col the
-// right column's corners stored in the same record, else the neighbour
-// record realigned by the bracket-row delta. ``slot`` points at the slot's
-// planes at the pixel's scanline.
+// Exact tests of the record at fetch-window column j1 (the march
+// hypothesis' column, clamped to the march window, plus off_f) and its
+// right neighbour: with dual_col the right column's corners stored in the
+// same record, else the neighbour record realigned by the bracket-row
+// delta. ``slot`` points at the slot's planes at the pixel's scanline.
 template <bool CULL, bool WIRE>
 __device__ void exact_record(const ScanParams& p, Best& b, const float* slot,
-                             float h, int mw, int canch_f, int off_f,
-                             float w0f, float qx, float qy) {
+                             int j1, int canch_f, float w0f, float qx,
+                             float qy) {
   const size_t ps = (size_t)8 * p.cl;  // record plane stride
   const int pr = p.dual ? 6 : 3;       // record planes per strip row
-  const int j1 = (int)fclamp(h, 0.0f, (float)(mw - 1)) + off_f;
   const int c1 = canch_f * 128 + iclamp(j1, 0, p.cwf - 1);
   const int c2 = canch_f * 128 + iclamp(j1 + 1, 0, p.cwf - 1);
   const float bw1 = slot[2 * ps + c1];
@@ -393,88 +501,163 @@ __device__ void exact_record(const ScanParams& p, Best& b, const float* slot,
     }
   };
 
-  float x00, y00, z00, x01, y01, z01;
-  strip1(0, x00, y00, z00);
-  strip2(0, x01, y01, z01);
-  float i00 = inv_w_of(p, x00, y00, z00);
-  float i01 = inv_w_of(p, x01, y01, z01);
-  float zm00 = 0.0f, zm01 = 0.0f;
-  if (CULL) {
-    zm00 = model_z(p, x00, y00, z00);
-    zm01 = model_z(p, x01, y01, z01);
-  }
+  if (!col_ok) return;  // no cell of the record is tested
+  Corner c00, c01;
+  strip1(0, c00.x, c00.y, c00.z);
+  strip2(0, c01.x, c01.y, c01.z);
   float prev_bottom = 0.0f;
   for (int k = 0; k < p.sr - 1; ++k) {
-    float x10, y10, z10, x11, y11, z11;
-    strip1(k + 1, x10, y10, z10);
-    strip2(k + 1, x11, y11, z11);
-    const float i10 = inv_w_of(p, x10, y10, z10);
-    const float i11 = inv_w_of(p, x11, y11, z11);
-    float zm10 = 0.0f, zm11 = 0.0f;
-    if (CULL) {
-      zm10 = model_z(p, x10, y10, z10);
-      zm11 = model_z(p, x11, y11, z11);
-    }
-    const float r_cell = rg0 + (float)k;
-    const bool cell_ok =
-        col_ok && r_cell >= 0.0f && r_cell <= (float)(p.n_r - 2);
-    const float v_top = 1.0f - r_cell * p.inv_nrm1;
-    const float v_bot = 1.0f - (r_cell + 1.0f) * p.inv_nrm1;
-    const float base_id = (r_cell * (float)(p.n_c - 1) + cg) * 2.0f;
-    const float diag_e = edge_fn(x10, y10, x01, y01, qx, qy);
-    const float left_e = edge_fn(x00, y00, x10, y10, qx, qy);
+    Corner c10, c11;
+    strip1(k + 1, c10.x, c10.y, c10.z);
+    strip2(k + 1, c11.x, c11.y, c11.z);
     const float top_e =
-        k == 0 ? edge_fn(x01, y01, x00, y00, qx, qy) : -prev_bottom;
-    const float bottom_e = edge_fn(x10, y10, x11, y11, qx, qy);
-    const float right_e = edge_fn(x11, y11, x01, y01, qx, qy);
+        k == 0 ? edge_fn(c01.x, c01.y, c00.x, c00.y, qx, qy) : -prev_bottom;
+    const float bottom_e = edge_fn(c10.x, c10.y, c11.x, c11.y, qx, qy);
     prev_bottom = bottom_e;
-    cell_fold<CULL, WIRE>(b, cell_ok, diag_e, top_e, bottom_e, left_e,
-                          right_e, z00, z10, z01, z11, i00, i10, i01, i11, u0,
-                          u1, v_top, v_bot, base_id, p.inv_ncm1, p.inv_nrm1,
-                          zm00, zm10, zm01, zm11, p.cull_thr);
-    x00 = x10; y00 = y10; z00 = z10; i00 = i10; zm00 = zm10;
-    x01 = x11; y01 = y11; z01 = z11; i01 = i11; zm01 = zm11;
+    const float r_cell = rg0 + (float)k;
+    if (r_cell >= 0.0f && r_cell <= (float)(p.n_r - 2)) {
+      const float v_top = 1.0f - r_cell * p.inv_nrm1;
+      const float v_bot = 1.0f - (r_cell + 1.0f) * p.inv_nrm1;
+      const float base_id = (r_cell * (float)(p.n_c - 1) + cg) * 2.0f;
+      const float diag_e = edge_fn(c10.x, c10.y, c01.x, c01.y, qx, qy);
+      const float left_e = edge_fn(c00.x, c00.y, c10.x, c10.y, qx, qy);
+      const float right_e = edge_fn(c11.x, c11.y, c01.x, c01.y, qx, qy);
+      cell_fold<CULL, WIRE>(p, b, true, diag_e, top_e, bottom_e, left_e,
+                            right_e, c00, c10, c01, c11, u0, u1, v_top,
+                            v_bot, base_id);
+    }
+    c00 = c10;
+    c01 = c11;
   }
 }
 
-// One colfix fan call for one slot (block-uniform call): re-test every
-// scanned window row over the fan's cells around the slot's top-1 column j0.
-// The corner columns are j0 + offs[cc]; cells lie between consecutive offsets
-// only (the K >= 2 outer fan has a gap where the inner fan's cells were).
-// Rows are the band window's (BIG: global grid rows, and each cell also
-// needs the row inside the scan rows of the chunks its two corner columns
-// land in).
+// One pixel's colfix fan for one slot: re-test the block's window rows
+// [k_lo, k_hi) over the fan's cells around the slot's top-1 column j0 (>= 0:
+// the slot has a real marched bracket). The corner columns are j0 +
+// offs[cc]; cells lie between consecutive offsets only (the K >= 2 outer fan
+// has a gap where the inner fan's cells were), with both corners in the
+// fetch window and the left one at most the grid's second-to-last column.
+// A cell's row must lie in the block's row bounds [kb_u, ke_u) and on the
+// grid (BIG: global grid rows, also inside the scan rows of the chunks its
+// two corners land in), so only this pixel's rows are walked; a row's top
+// edge is then the previous row's bottom edge recomputed from the same
+// corners (the reference carries it), and at k_lo its reverse.
 template <int NF, bool BIG, bool CULL, bool WIRE>
-__device__ void colfix_slot(const ScanParams& p, Best& b,
-                            const float* __restrict__ win,
-                            const int* __restrict__ bounds, int band,
-                            int mw, int canch_f, int off_f, int wbase,
-                            float w0f, float h1, float m1, float qx, float qy,
-                            const int (&offs)[NF]) {
-  const bool hitok = m1 < kHalfFar;
-  const int j0 = (int)fclamp(h1, 0.0f, (float)(mw - 1)) + off_f;
+__device__ void colfix_pixel(const ScanParams& p, Best& b,
+                             const float* __restrict__ win,
+                             const int* __restrict__ bounds, int band,
+                             int canch_f, int wbase, float w0f, int j0,
+                             int k_lo, int k_hi, int kb_u, int ke_u, float qx,
+                             float qy, const int (&offs)[NF]) {
   const int rows = BIG ? p.rpad : p.rmax;  // rows of the window read
-  int col[NF], sub[NF];
-  bool colok[NF];
-  float cg[NF];
+  int k0 = imax(imax(k_lo, kb_u), -wbase);
+  int k1 = imin(imin(k_hi, ke_u), p.n_r - 1 - wbase);
+  unsigned cells = 0;         // bit f: cell f is tested
+  int rows_f[NF];             // BIG: cell f's rows [lo, hi) as lo | hi << 16
+  int ulo = k1, uhi = k0;     // BIG: the union of the cells' rows
 #pragma unroll
-  for (int cc = 0; cc < NF; ++cc) {
-    const int ix = j0 + offs[cc];
-    colok[cc] = hitok && ix >= 0 && ix <= p.cwf - 1;
-    sub[cc] = iclamp(ix, 0, p.cwf - 1) / 128;
-    col[cc] = canch_f * 128 + iclamp(ix, 0, p.cwf - 1);
-    cg[cc] = (float)col[cc];
+  for (int f = 0; f + 1 < NF; ++f) {
+    const int ix = j0 + offs[f];
+    if (offs[f + 1] != offs[f] + 1 || ix < 0 || ix + 1 > p.cwf - 1 ||
+        (float)(canch_f * 128 + ix) > (float)(p.n_c - 2))
+      continue;
+    cells |= 1u << f;
+    if constexpr (BIG) {
+      const ChunkRows ca =
+          chunk_rows(p, bounds[band * p.nchunks + canch_f + ix / 128]);
+      const ChunkRows cb =
+          chunk_rows(p, bounds[band * p.nchunks + canch_f + (ix + 1) / 128]);
+      const int lo = imax(ca.ke > ca.kb ? ca.origin + ca.kb : rows,
+                          cb.ke > cb.kb ? cb.origin + cb.kb : rows);
+      const int hi = imin(ca.ke > ca.kb ? ca.origin + ca.ke : 0,
+                          cb.ke > cb.kb ? cb.origin + cb.ke : 0);
+      rows_f[f] = lo | hi << 16;
+      if (lo < hi) {
+        ulo = imin(ulo, lo);
+        uhi = imax(uhi, hi);
+      }
+    }
   }
-  // Row bounds: the union of the scan rows of every chunk a valid fan
-  // corner of the block lands in.
+  if constexpr (BIG) {
+    k0 = imax(k0, ulo);
+    k1 = imin(k1, uhi);
+  }
+  if (cells == 0 || k0 >= k1) return;
+  const size_t plane = (size_t)p.rpad * p.cl;
+  auto corner = [&](int row, int cc) {
+    const size_t i = (size_t)(wbase + row) * p.cl + canch_f * 128 +
+                     iclamp(j0 + offs[cc], 0, p.cwf - 1);
+    return Corner{win[i], win[plane + i], win[2 * plane + i]};
+  };
+  Corner t[NF];  // the current row's fan corners
+#pragma unroll
+  for (int cc = 0; cc < NF; ++cc) t[cc] = corner(k0, cc);
+  for (int k = k0; k < k1; ++k) {
+    // Row k+1 past the band window re-reads the last 8-row block's first
+    // row (the reference's clamped block load), past the padded grid the
+    // last row; such rows are masked.
+    const int kn = k + 1 >= rows ? (BIG ? rows - 1 : rows - 8) : k + 1;
+    const float r_cell = w0f + (float)k;
+    const float v_top = 1.0f - r_cell * p.inv_nrm1;
+    const float v_bot = 1.0f - (r_cell + 1.0f) * p.inv_nrm1;
+    Corner pb;          // the previous corner's next-row corner
+    float pline = 0.0f;  // and its column edge
+#pragma unroll
+    for (int cc = 0; cc < NF; ++cc) {
+      const Corner bc = corner(kn, cc);
+      const float line = edge_fn(t[cc].x, t[cc].y, bc.x, bc.y, qx, qy);
+      if (cc > 0) {
+        const int f = cc - 1;
+        if (((cells >> f) & 1u) &&
+            (!BIG || (k >= (rows_f[f] & 0xFFFF) && k < rows_f[f] >> 16))) {
+          const float diag_e = edge_fn(pb.x, pb.y, t[cc].x, t[cc].y, qx, qy);
+          const float top_e =
+              k == k_lo ? edge_fn(t[cc].x, t[cc].y, t[f].x, t[f].y, qx, qy)
+                        : -edge_fn(t[f].x, t[f].y, t[cc].x, t[cc].y, qx, qy);
+          const float bottom_e = edge_fn(pb.x, pb.y, bc.x, bc.y, qx, qy);
+          const float cg = (float)(canch_f * 128 + j0 + offs[f]);
+          const float u0 = cg * p.inv_ncm1;
+          const float u1 = (cg + 1.0f) * p.inv_ncm1;
+          const float base_id = (r_cell * (float)(p.n_c - 1) + cg) * 2.0f;
+          cell_fold<CULL, WIRE>(p, b, true, diag_e, top_e, bottom_e, pline,
+                                -line, t[f], pb, t[cc], bc, u0, u1, v_top,
+                                v_bot, base_id);
+        }
+        t[f] = pb;
+      }
+      pb = bc;
+      pline = line;
+    }
+    t[NF - 1] = pb;
+  }
+}
+
+// One colfix fan call for one slot (block-uniform call). The block's row
+// bounds are the union of the scan rows of every chunk a valid fan corner
+// of the block lands in; a pixel without a real marched bracket in the slot
+// has no valid corner and is left as it is.
+template <int NF, bool BIG, bool CULL, bool WIRE>
+__device__ void colfix_slot(const ScanParams& p, MarchShared<WIRE>& sm,
+                            const float* __restrict__ win,
+                            const int* __restrict__ bounds, int band, int s,
+                            int canch_f, int wbase, float w0f, float qx0,
+                            float qy, int y, int lane,
+                            const int (&offs)[NF]) {
+  const int rows = BIG ? p.rpad : p.rmax;  // rows of the window read
+  unsigned subs = 0;  // the chunks this thread's valid corners land in
+#pragma unroll
+  for (int q = 0; q < kMarchPix; ++q) {
+    const int j0 = sm.fix[s][y][lane + 32 * q];
+#pragma unroll
+    for (int cc = 0; cc < NF; ++cc) {
+      const int ix = j0 + offs[cc];
+      if (j0 >= 0 && ix >= 0 && ix <= p.cwf - 1) subs |= 1u << (ix / 128);
+    }
+  }
   int kb_u = rows, ke_u = 0;
   const int nsub = p.cwf / 128;
   for (int tt = 0; tt < nsub; ++tt) {
-    bool mine = false;
-#pragma unroll
-    for (int cc = 0; cc < NF; ++cc)
-      mine = mine || (colok[cc] && sub[cc] == tt);
-    if (__syncthreads_or(mine)) {
+    if (__syncthreads_or((subs >> tt) & 1u)) {
       const ChunkRows cr =
           chunk_rows(p, bounds[band * p.nchunks + canch_f + tt]);
       if (cr.ke > cr.kb) {
@@ -483,129 +666,91 @@ __device__ void colfix_slot(const ScanParams& p, Best& b,
       }
     }
   }
-  int lo_c[NF], hi_c[NF];  // BIG: each corner's chunk rows
-  if constexpr (BIG) {
-#pragma unroll
-    for (int cc = 0; cc < NF; ++cc) {
-      const ChunkRows cr =
-          chunk_rows(p, bounds[band * p.nchunks + canch_f + sub[cc]]);
-      const bool ne = cr.ke > cr.kb;
-      lo_c[cc] = ne ? cr.origin + cr.kb : rows;
-      hi_c[cc] = ne ? cr.origin + cr.ke : 0;
-    }
-  }
   const int k_lo = imin(kb_u / 8, rows / 8 - 1) * 8;
   const int k_hi = imin((ke_u + 8) / 8, rows / 8) * 8;
-  const size_t plane = (size_t)p.rpad * p.cl;
-
-  float tx[NF], ty[NF], tz[NF], ti[NF];  // the current row's fan corners
-  float tm[NF];                          // and their model z (CULL)
-  float prev_bottom[NF];                 // per cell f (between f and f + 1)
-#pragma unroll
-  for (int f = 0; f < NF; ++f) prev_bottom[f] = 0.0f;
-  if (k_lo < k_hi) {
-    const size_t r = (size_t)(wbase + k_lo) * p.cl;
-#pragma unroll
-    for (int cc = 0; cc < NF; ++cc) {
-      tx[cc] = win[r + col[cc]];
-      ty[cc] = win[plane + r + col[cc]];
-      tz[cc] = win[2 * plane + r + col[cc]];
-      ti[cc] = inv_w_of(p, tx[cc], ty[cc], tz[cc]);
-      tm[cc] = CULL ? model_z(p, tx[cc], ty[cc], tz[cc]) : 0.0f;
-    }
-  }
-  for (int k = k_lo; k < k_hi; ++k) {
-    // Row k+1 past the band window re-reads the last 8-row block's first
-    // row (the reference's clamped block load), past the padded grid the
-    // last row; such rows are masked.
-    const int kn = k + 1 >= rows ? (BIG ? rows - 1 : rows - 8) : k + 1;
-    const size_t r = (size_t)(wbase + kn) * p.cl;
-    float bx[NF], by[NF], bz[NF], bi[NF], lines[NF];
-    float bm[NF];
-#pragma unroll
-    for (int cc = 0; cc < NF; ++cc) {
-      bx[cc] = win[r + col[cc]];
-      by[cc] = win[plane + r + col[cc]];
-      bz[cc] = win[2 * plane + r + col[cc]];
-      bi[cc] = inv_w_of(p, bx[cc], by[cc], bz[cc]);
-      bm[cc] = CULL ? model_z(p, bx[cc], by[cc], bz[cc]) : 0.0f;
-      lines[cc] = edge_fn(tx[cc], ty[cc], bx[cc], by[cc], qx, qy);
-    }
-    const float r_cell = w0f + (float)k;
-    const bool row_ok = k >= kb_u && k < ke_u && r_cell >= 0.0f &&
-                        r_cell <= (float)(p.n_r - 2);
-    const float v_top = 1.0f - r_cell * p.inv_nrm1;
-    const float v_bot = 1.0f - (r_cell + 1.0f) * p.inv_nrm1;
-#pragma unroll
-    for (int f = 0; f + 1 < NF; ++f) {
-      if (offs[f + 1] != offs[f] + 1) continue;  // the outer fan's gap
-      bool cell_ok = row_ok && colok[f] && colok[f + 1] &&
-                     cg[f] <= (float)(p.n_c - 2);
-      if constexpr (BIG)
-        cell_ok = cell_ok && k >= lo_c[f] && k < hi_c[f] &&
-                  k >= lo_c[f + 1] && k < hi_c[f + 1];
-      const float u0 = cg[f] * p.inv_ncm1;
-      const float u1 = (cg[f] + 1.0f) * p.inv_ncm1;
-      const float base_id = (r_cell * (float)(p.n_c - 1) + cg[f]) * 2.0f;
-      const float diag_e = edge_fn(bx[f], by[f], tx[f + 1], ty[f + 1], qx,
-                                   qy);
-      const float top_e =
-          k == k_lo ? edge_fn(tx[f + 1], ty[f + 1], tx[f], ty[f], qx, qy)
-                    : -prev_bottom[f];
-      const float bottom_e = edge_fn(bx[f], by[f], bx[f + 1], by[f + 1], qx,
-                                     qy);
-      prev_bottom[f] = bottom_e;
-      cell_fold<CULL, WIRE>(
-          b, cell_ok, diag_e, top_e, bottom_e, lines[f], -lines[f + 1], tz[f],
-          bz[f], tz[f + 1], bz[f + 1], ti[f], bi[f], ti[f + 1], bi[f + 1], u0,
-          u1, v_top, v_bot, base_id, p.inv_ncm1, p.inv_nrm1, tm[f], bm[f],
-          tm[f + 1], bm[f + 1], p.cull_thr);
-    }
-#pragma unroll
-    for (int cc = 0; cc < NF; ++cc) {
-      tx[cc] = bx[cc];
-      ty[cc] = by[cc];
-      tz[cc] = bz[cc];
-      ti[cc] = bi[cc];
-      tm[cc] = bm[cc];
-    }
+  if (k_lo >= k_hi) return;  // block-uniform
+#pragma unroll 1
+  for (int q = 0; q < kMarchPix; ++q) {
+    const int x = lane + 32 * q;
+    const int j0 = sm.fix[s][y][x];
+    if (j0 < 0) continue;
+    Best b = load_best(sm, y, x);
+    colfix_pixel<NF, BIG, CULL, WIRE>(p, b, win, bounds, band, canch_f,
+                                      wbase, w0f, j0, k_lo, k_hi, kb_u, ke_u,
+                                      qx0 + (float)x, qy, offs);
+    store_best(sm, y, x, b);
   }
 }
 
 // One fan call over every slot, each gated on the block still holding an
 // uncovered pixel with a real marched bracket in that slot.
 template <int NF, bool BIG, bool CULL, bool WIRE>
-__device__ void colfix_pass(const ScanParams& p, Best& b,
+__device__ void colfix_pass(const ScanParams& p, MarchShared<WIRE>& sm,
                             const float* __restrict__ win,
-                            const int* __restrict__ bounds, int band, int mw,
-                            int canch_f, int off_f, int wbase, float w0f,
-                            const float* fix_h, const float* fix_m, float qx,
-                            float qy, const int (&offs)[NF]) {
+                            const int* __restrict__ bounds, int band,
+                            int canch_f, int wbase, float w0f, float qx0,
+                            float qy, int y, int lane,
+                            const int (&offs)[NF]) {
   for (int s = 0; s < p.nbr; ++s) {
-    if (__syncthreads_or(b.id >= 1.0e30f && fix_m[s] < kHalfFar))
-      colfix_slot<NF, BIG, CULL, WIRE>(p, b, win, bounds, band, mw, canch_f,
-                                       off_f, wbase, w0f, fix_h[s], fix_m[s],
-                                       qx, qy, offs);
+    bool open = false;
+#pragma unroll
+    for (int q = 0; q < kMarchPix; ++q) {
+      const int x = lane + 32 * q;
+      open = open || (sm.b[2][y][x] >= 1.0e30f && sm.fix[s][y][x] >= 0);
+    }
+    if (__syncthreads_or(open))
+      colfix_slot<NF, BIG, CULL, WIRE>(p, sm, win, bounds, band, s, canch_f,
+                                       wbase, w0f, qx0, qy, y, lane, offs);
   }
 }
 
+// The march window's sweep for one slot -> each pixel's window column in
+// ``sm.best``, read by sweep_column; returns this thread's second-hit flag
+// (COUNT). Block-uniform call, between two barriers of the caller.
+template <bool SKIP, bool COUNT, bool WIRE>
+__device__ bool sweep_window(MarchShared<WIRE>& sm, const float* sxr,
+                             const float* zcr, bool chunked, bool all,
+                             int lo, int len, int ws, int mw, float qx0,
+                             int y, int lane) {
+  if (!chunked)
+    return scatter_pairs<SKIP, COUNT>(sm, sxr, zcr, lo, len - 1, 0, qx0, y,
+                                      lane);
+  return all ? scatter_chunks<true, SKIP, COUNT>(sm, sxr, zcr, ws, mw, qx0,
+                                                 y, lane)
+             : scatter_chunks<false, SKIP, COUNT>(sm, sxr, zcr, ws, mw, qx0,
+                                                  y, lane);
+}
+
+// A pixel's swept column (``none`` when no pair offered it a key below FAR:
+// the dense sweep's 0, the gated chunked sweep's mw) and its key.
+__device__ __forceinline__ int sweep_column(unsigned long long v, int none,
+                                            float& key) {
+  key = v == kNoHit ? kFar : sweep_key_value(v);
+  return v == kNoHit ? none : (int)(unsigned)(v & 0xffffffffu);
+}
+
 template <bool BIG, bool CULL, bool WIRE>
-__global__ void __launch_bounds__(1024, 1)
+__global__ void __launch_bounds__(kMarchThreads, 2)
 march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
              const int* __restrict__ w0, const int* __restrict__ bounds,
              const int* __restrict__ canch, const int* __restrict__ mid,
              const int* __restrict__ bflag, float* __restrict__ attrs,
              ScanParams p) {
+  __shared__ MarchShared<WIRE> sm;
   const int blk = blockIdx.x, band = blockIdx.y;
-  const int x = threadIdx.x, y = threadIdx.y;
-  const size_t o = (size_t)(band * 8 + y) * p.wl + blk * 128 + x;
+  const int y = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const size_t orow = (size_t)(band * 8 + y) * p.wl + blk * 128 + lane;
   const size_t ap = (size_t)p.hpad * p.wl;
   if (bflag != nullptr && bflag[band] == 0) {  // sparse band: uncovered
-    for (int a = 0; a < 4; ++a) attrs[a * ap + o] = 0.0f;
-    if (p.raster_z) attrs[4 * ap + o] = kFar;
+#pragma unroll
+    for (int q = 0; q < kMarchPix; ++q) {
+      const size_t o = orow + 32 * q;
+      for (int a = 0; a < 4; ++a) attrs[a * ap + o] = 0.0f;
+      if (p.raster_z) attrs[4 * ap + o] = kFar;
+    }
     return;
   }
-  const float qx = ((float)(blk * 128) + (float)x) + 0.5f;
+  const float qx0 = (float)(blk * 128) + 0.5f;  // pixel x's centre: qx0 + x
   const float qy = ((float)p.height - (float)(band * 8 + y)) - 0.5f;
   const int canch_m = canch[blk] * 8;
   const int canch_f = canch_m / 128;
@@ -626,8 +771,10 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
   const size_t ps = (size_t)8 * p.cl;
   const bool need2 = p.hyps == 2;
 
-  Best b = {kFar, 1.0f, kIdNone, 0.0f, 0.0f, 0.0f, 0.0f};
-  float fix_h[4], fix_m[4];
+#pragma unroll
+  for (int q = 0; q < kMarchPix; ++q)
+    store_best(sm, y, lane + 32 * q,
+               Best{kFar, 1.0f, kIdNone, 0.0f, 0.0f, 0.0f, 0.0f});
 
   for (int s = 0; s < p.nbr; ++s) {
     // This slot's record planes at scanline y (plane stride ps).
@@ -635,90 +782,132 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
         rec + ((size_t)band * p.nbr + s) * nrec * ps + (size_t)y * p.cl;
     const float* sxr = slot;       // crossing x
     const float* zcr = slot + ps;  // crossing z
-    fix_h[s] = (float)mw;
-    fix_m[s] = kFar;
+#pragma unroll
+    for (int q = 0; q < kMarchPix; ++q) sm.fix[s][y][lane + 32 * q] = -1;
     if (midv == -2) continue;  // block-uniform: no candidates, or gated
     // Slot gate: any record in the block's march window (its narrow window
     // when the block marches narrow), over all 8 rows.
     bool mine = false;
-    for (int c = x; c < mw; c += 128) mine = mine || zcr[ws + c] < kHalfFar;
+    for (int c = lane; c < mw; c += 32) mine = mine || zcr[ws + c] < kHalfFar;
     bool any_rec = __syncthreads_or(mine);
     const int lo_n = canch_m + imax(midv, 0) * 8;
     if (narrow_ok) {
-      const bool any_nar = __syncthreads_or(zcr[lo_n + x] < kHalfFar);
+      bool nar = false;
+#pragma unroll
+      for (int q = 0; q < kMarchPix; ++q)
+        nar = nar || zcr[lo_n + lane + 32 * q] < kHalfFar;
+      const bool any_nar = __syncthreads_or(nar);
       if (midv >= 0) any_rec = any_nar;
     }
     if (!any_rec) continue;  // block-uniform
 
-    int o1, cnt;
-    float m1, shift = 0.0f;
     const bool narrow = narrow_ok && midv >= 0;
     const int lo = narrow ? lo_n : ws;
     const int len = narrow ? 128 : mw;
-    if (chunked) {
-      sweep_chunked(sxr, zcr, ws, mw, blk, qx, o1, m1, cnt);
-    } else {
-      sweep(sxr, zcr, lo, len - 1, qx, -1, o1, m1, cnt);
-      shift = narrow ? (float)(midv * 8) : 0.0f;
+    const int shift = narrow ? midv * 8 : 0;
+#pragma unroll
+    for (int q = 0; q < kMarchPix; ++q) sm.best[y][lane + 32 * q] = kNoHit;
+    if (need2 && lane < 4) sm.hit1[y][lane] = 0u;
+    __syncthreads();
+    const bool multi =
+        need2 ? sweep_window<false, true>(sm, sxr, zcr, chunked, false, lo,
+                                          len, ws, mw, qx0, y, lane)
+              : sweep_window<false, false>(sm, sxr, zcr, chunked, false, lo,
+                                           len, ws, mw, qx0, y, lane);
+    __syncthreads();
+#pragma unroll 1
+    for (int q = 0; q < kMarchPix; ++q) {
+      const int x = lane + 32 * q;
+      float m1;
+      const int o1 = sweep_column(sm.best[y][x], chunked ? mw : 0, m1);
+      const int j1 = imin(o1 + shift, mw - 1) + off_f;
+      sm.fix[s][y][x] = (short)(m1 < kHalfFar ? j1 : -1);
+      sm.skip[y][x] = (short)o1;
+      Best b = load_best(sm, y, x);
+      exact_record<CULL, WIRE>(p, b, slot, j1, canch_f, w0f, qx0 + (float)x,
+                               qy);
+      store_best(sm, y, x, b);
     }
-    const float h1 = (float)o1 + shift;
-    exact_record<CULL, WIRE>(p, b, slot, h1, mw, canch_f, off_f, w0f, qx,
-                             qy);
-    if (need2 && __syncthreads_or(cnt > 1)) {
+    if (need2 && __syncthreads_or(multi)) {
       // The second hypothesis: the nearest hit but the window's first one
-      // (a chunked march re-sweeps the whole window for both).
-      int od = o1, o2, c2;
+      // (a chunked march re-sweeps the whole window, ungated, for both).
       float m2;
-      if (chunked) sweep(sxr, zcr, lo, len - 1, qx, -1, od, m2, c2);
-      sweep(sxr, zcr, lo, len - 1, qx, od, o2, m2, c2);
-      exact_record<CULL, WIRE>(p, b, slot, (float)o2 + shift, mw, canch_f,
-                               off_f, w0f, qx, qy);
+      if (chunked) {
+#pragma unroll
+        for (int q = 0; q < kMarchPix; ++q)
+          sm.best[y][lane + 32 * q] = kNoHit;
+        __syncthreads();
+        sweep_window<false, false>(sm, sxr, zcr, true, true, lo, len, ws, mw,
+                                   qx0, y, lane);
+        __syncthreads();
+#pragma unroll
+        for (int q = 0; q < kMarchPix; ++q) {
+          const int x = lane + 32 * q;
+          sm.skip[y][x] = (short)sweep_column(sm.best[y][x], 0, m2);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < kMarchPix; ++q) sm.best[y][lane + 32 * q] = kNoHit;
+      __syncthreads();
+      sweep_window<true, false>(sm, sxr, zcr, chunked, true, lo, len, ws, mw,
+                                qx0, y, lane);
+      __syncthreads();
+#pragma unroll 1
+      for (int q = 0; q < kMarchPix; ++q) {
+        const int x = lane + 32 * q;
+        const int o2 = sweep_column(sm.best[y][x], 0, m2);
+        Best b = load_best(sm, y, x);
+        exact_record<CULL, WIRE>(p, b, slot, imin(o2 + shift, mw - 1) + off_f,
+                                 canch_f, w0f, qx0 + (float)x, qy);
+        store_best(sm, y, x, b);
+      }
     }
-    fix_h[s] = h1;
-    fix_m[s] = m1;
   }
 
   // The colfix cascade: the inner fan (K = 0: the one cell j0; K >= 1:
   // cells j0-1 .. j0+1), then at K >= 2 the outer cells where holes remain.
   if (p.colfix == 0) {
     const int inner0[2] = {0, 1};
-    colfix_pass<2, BIG, CULL, WIRE>(p, b, win, bounds, band, mw, canch_f,
-                                    off_f, wbase, w0f, fix_h, fix_m, qx, qy,
-                                    inner0);
+    colfix_pass<2, BIG, CULL, WIRE>(p, sm, win, bounds, band, canch_f, wbase,
+                                    w0f, qx0, qy, y, lane, inner0);
   } else if (p.colfix > 0) {
     const int inner[4] = {-1, 0, 1, 2};
-    colfix_pass<4, BIG, CULL, WIRE>(p, b, win, bounds, band, mw, canch_f,
-                                    off_f, wbase, w0f, fix_h, fix_m, qx, qy,
-                                    inner);
+    colfix_pass<4, BIG, CULL, WIRE>(p, sm, win, bounds, band, canch_f, wbase,
+                                    w0f, qx0, qy, y, lane, inner);
     if (p.colfix == 2) {
       const int outer2[4] = {-2, -1, 2, 3};
-      colfix_pass<4, BIG, CULL, WIRE>(p, b, win, bounds, band, mw, canch_f,
-                                      off_f, wbase, w0f, fix_h, fix_m, qx,
-                                      qy, outer2);
+      colfix_pass<4, BIG, CULL, WIRE>(p, sm, win, bounds, band, canch_f,
+                                      wbase, w0f, qx0, qy, y, lane, outer2);
     } else if (p.colfix == 3) {
       const int outer3[6] = {-3, -2, -1, 2, 3, 4};
-      colfix_pass<6, BIG, CULL, WIRE>(p, b, win, bounds, band, mw, canch_f,
-                                      off_f, wbase, w0f, fix_h, fix_m, qx,
-                                      qy, outer3);
+      colfix_pass<6, BIG, CULL, WIRE>(p, sm, win, bounds, band, canch_f,
+                                      wbase, w0f, qx0, qy, y, lane, outer3);
     }
   }
 
-  const float bz = b.zn / b.ar;
-  bool cov = bz < kFar;
-  const float den = fabsf(b.iw) > 1e-30f ? b.iw : 1.0f;
-  const float u = cov ? b.uw / den : 0.0f;
-  const float v = cov ? b.vw / den : 0.0f;
-  const float ndcx = qx * p.sxw - 1.0f;
-  const float ndcy = qy * p.syw - 1.0f;
-  const float num =
-      (((p.m2[0] * ndcx + p.m2[1] * ndcy) + p.m2[2] * bz) + p.m2[3]) * b.ar;
-  const float zm = cov ? num / den : 0.0f;
-  if (WIRE) cov = cov && b.ml <= kWireEdge * b.ar;
-  attrs[o] = u;
-  attrs[ap + o] = v;
-  attrs[2 * ap + o] = zm;
-  attrs[3 * ap + o] = cov ? 1.0f : 0.0f;
-  if (p.raster_z) attrs[4 * ap + o] = bz;
+#pragma unroll 1
+  for (int q = 0; q < kMarchPix; ++q) {
+    const int x = lane + 32 * q;
+    const Best b = load_best(sm, y, x);
+    const float qx = qx0 + (float)x;
+    const float bz = b.zn / b.ar;
+    bool cov = bz < kFar;
+    const float den = fabsf(b.iw) > 1e-30f ? b.iw : 1.0f;
+    const float u = cov ? b.uw / den : 0.0f;
+    const float v = cov ? b.vw / den : 0.0f;
+    const float ndcx = qx * p.sxw - 1.0f;
+    const float ndcy = qy * p.syw - 1.0f;
+    const float num =
+        (((p.m2[0] * ndcx + p.m2[1] * ndcy) + p.m2[2] * bz) + p.m2[3]) * b.ar;
+    const float zm = cov ? num / den : 0.0f;
+    if (WIRE) cov = cov && b.ml <= kWireEdge * b.ar;
+    const size_t o = orow + 32 * q;
+    attrs[o] = u;
+    attrs[ap + o] = v;
+    attrs[2 * ap + o] = zm;
+    attrs[3 * ap + o] = cov ? 1.0f : 0.0f;
+    if (p.raster_z) attrs[4 * ap + o] = bz;
+  }
 }
 
 // The march instance for a launch's (big_grid, edge cull, wireframe).
@@ -808,6 +997,12 @@ const char* scan_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);
 }
 
+// The march's block: threads, and pixels a thread.
+void scan_march_shape(int* threads, int* pixels) {
+  *threads = kMarchThreads;
+  *pixels = kMarchPix;
+}
+
 int scan_solve(const void* win, const void* w0, const void* bounds,
                const void* bflag, void* rec, const ScanParams* p,
                void* stream) {
@@ -822,7 +1017,7 @@ int scan_march(const void* rec, const void* win, const void* w0,
                const void* bounds, const void* canch, const void* mid,
                const void* bflag, void* attrs, const ScanParams* p,
                void* stream) {
-  dim3 grid(p->nblk, p->nbands), block(128, 8);
+  dim3 grid(p->nblk, p->nbands), block(kMarchThreads);
   const MarchKernel march = march_for(*p);
   march<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)rec, (const float*)win, (const int*)w0,

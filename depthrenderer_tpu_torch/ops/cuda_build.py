@@ -4,7 +4,10 @@ the dispatch rule every kernel wrapper follows.
 Each ``csrc/*.cu`` file has a plain C interface and is compiled on its own
 into ``build/lib<name>.so`` on first use (``sm_90a``, ``--fmad=false``: nvcc
 contracts no multiply-add on its own, so a kernel computes the same float32
-operations as its plain PyTorch twin). The build directory is git-ignored.
+operations as its plain PyTorch twin). ptxas's resource report of each
+kernel (``-Xptxas -v``) is kept beside the library as
+``build/lib<name>.ptxas.txt`` (:func:`ptxas_usage` reads it). The build
+directory is git-ignored.
 
 A wrapper runs its kernel's plain twin when every tensor it is given lies on
 the CPU (:func:`on_cpu`), and otherwise checks its CUDA tensors
@@ -14,6 +17,7 @@ the CPU (:func:`on_cpu`), and otherwise checks its CUDA tensors
 from __future__ import annotations
 
 import os
+import re
 import subprocess
 import tempfile
 from pathlib import Path
@@ -22,7 +26,7 @@ PACKAGE = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE / "csrc"
 BUILD_DIR = PACKAGE / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc() -> str:
@@ -38,17 +42,19 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"lib{Path(source).stem}.so"
 
 
-def build(source: str, force: bool = False) -> Path:
-    """Compile ``csrc/<source>`` unless an up-to-date library exists; returns
-    the library's path. Raises ``RuntimeError`` with nvcc's output."""
-    src = CSRC / source
-    lib = library_path(source)
+def build(source: str, force: bool = False, src: Path | None = None,
+          lib: Path | None = None) -> Path:
+    """Compile ``csrc/<source>`` (or the file ``src``, into ``lib``) unless
+    an up-to-date library exists; returns the library's path. Raises
+    ``RuntimeError`` with nvcc's output."""
+    src = CSRC / source if src is None else Path(src)
+    lib = library_path(source) if lib is None else Path(lib)
     if lib.exists() and not force and lib.stat().st_mtime >= src.stat().st_mtime:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    lib.parent.mkdir(parents=True, exist_ok=True)
     # Compile to a private name, then rename: concurrent processes never load
     # a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=lib.parent)
     os.close(fd)
     cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -56,8 +62,50 @@ def build(source: str, force: bool = False) -> Path:
         os.unlink(tmp)
         raise RuntimeError(f"nvcc failed:\n{' '.join(cmd)}\n{proc.stdout}\n"
                            f"{proc.stderr}")
+    lib.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
     os.replace(tmp, lib)
     return lib
+
+
+def _kernel_label(mangled: str) -> str:
+    """``name`` or ``name<b, ...>`` of an Itanium-mangled kernel with bool
+    template arguments (``_Z12march_kernelILb0ELb1ELb0EEv...`` ->
+    ``march_kernel<false, true, false>``), else the mangled name."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if m is None:
+        return mangled
+    end = m.end() + int(m.group(1))
+    name, rest = mangled[m.end():end], mangled[end:]
+    if not rest.startswith("I"):
+        return name
+    flags = re.findall(r"Lb([01])E", rest[:rest.find("EE") + 2])
+    return f"{name}<{', '.join(('false', 'true')[int(f)] for f in flags)}>"
+
+
+def ptxas_usage(lib: Path) -> dict:
+    """Per kernel of a library built by :func:`build`, from its ptxas
+    report: ``{label: {"registers", "spill_stores", "spill_loads",
+    "stack", "smem"}}`` (bytes but registers)."""
+    text = Path(lib).with_suffix(".ptxas.txt").read_text()
+    usage, current = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            current = usage.setdefault(_kernel_label(m.group(1)), {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current is not None:
+            current.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current is not None:
+            current["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            current["smem"] = int(sm.group(1)) if sm else 0
+    return usage
 
 
 def on_cpu(*tensors) -> bool:

@@ -1429,11 +1429,14 @@ class _Params(ctypes.Structure):
         ("m2", ctypes.c_float * 4), ("m3", ctypes.c_float * 4)]
 
 
-def _load_lib():
+def _load_lib(path=None):
+    """The kernels' library: ``build/libscan.so`` (built on first use), or
+    the library at ``path`` (another build of a ``scan.cu`` with the same
+    C interface), which the wrappers then launch from."""
     global _lib
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build_kernels()))
+        if _lib is None or path is not None:
+            lib = ctypes.CDLL(str(path or build_kernels()))
             vp, ip = ctypes.c_void_p, ctypes.POINTER(_Params)
             for name, n_ptr in (("scan_solve", 5), ("scan_march", 8),
                                 ("scan_shade", 5)):
@@ -1444,6 +1447,23 @@ def _load_lib():
             lib.scan_error_string.argtypes = [ctypes.c_int]
             _lib = lib
     return _lib
+
+
+def march_shape() -> tuple[int, int]:
+    """The march kernel's block: (threads, pixels a thread); a block covers
+    an 8-row band's 128-pixel block."""
+    threads, pixels = ctypes.c_int(), ctypes.c_int()
+    _load_lib().scan_march_shape(ctypes.byref(threads), ctypes.byref(pixels))
+    return threads.value, pixels.value
+
+
+def march_ptxas(lib=None) -> dict:
+    """ptxas's registers, spills, stack and shared memory of each
+    ``march_kernel`` instance of ``build/libscan.so``, or of the library
+    ``lib`` (from its build report)."""
+    lib = cuda_build.library_path("scan.cu") if lib is None else lib
+    return {k: v for k, v in cuda_build.ptxas_usage(lib).items()
+            if k.startswith("march_kernel")}
 
 
 def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),

@@ -39,17 +39,12 @@ def resolve_device(device) -> torch.device:
 
 
 def _auto_impl(grid_n: int, width: int = 1920, height: int = 1080) -> str:
-    """The rasteriser for a grid: the scan whenever its suggested config fits
-    the JAX package's budget (the standard variant through d10, big_grid
-    through d12). A larger grid raises; the tiled route is an explicit
-    choice (``impl="pallas"``), never a silent switch."""
+    """The rasteriser for a grid, as the JAX package picks it on its
+    accelerator: the scan whenever its suggested config fits the JAX
+    package's budget (the standard variant through d10, big_grid through
+    d12), else the tiled Pallas route."""
     cfg = raster_scan.suggest_scan_config(grid_n, width, height)
-    if raster_scan.scan_supported(grid_n, cfg):
-        return "scan"
-    raise NotImplementedError(
-        f"grid n={grid_n} exceeds the scan's budget even in its big_grid "
-        "variant (d <= 12); choose the tiled route explicitly with "
-        "impl='pallas' (CLI: --impl pallas)")
+    return "scan" if raster_scan.scan_supported(grid_n, cfg) else "pallas"
 
 
 def _grid_arrays(mesh: Mesh):
@@ -112,8 +107,10 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     :param colfix: the scan's colfix fan half-width: ``"auto"`` (1, or 3
         under ``quality``), ``None`` (off) or 0-3.
     :param device: ``"cuda"`` (kernels) or ``"cpu"`` (plain passes).
-    :param impl: ``"auto"`` (= the scan where it is ported), ``"scan"``,
-        ``"pallas"`` or ``"grid"``.
+    :param impl: ``"auto"`` (= the scan), ``"scan"``, ``"pallas"`` or
+        ``"grid"``. Past the scan's budget (d13 and up) ``"auto"`` and
+        ``"scan"`` log a NOTICE and render through ``"pallas"``, as the
+        reference does (a ``ScanConfig`` given as ``config`` is dropped).
     :param binning_quantile: the tiled routes' window quantile (1.0 =
         lossless binning).
     :param edge_cull_threshold: the depth-discontinuity edge cull: cells or
@@ -133,7 +130,14 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     torch.set_float32_matmul_precision("highest")
     vgrid, uvgrid, n = _grid_arrays(mesh)
     if impl in ("auto", "scan"):
-        impl = _auto_impl(n, width, height)   # raises past d12
+        impl = _auto_impl(n, width, height)
+        if impl != "scan":
+            # As the reference does past d12: the tiled route on the same
+            # device, with its own measured config.
+            log(f"NOTICE: grid n={n} exceeds the scan kernel's VMEM window "
+                f"budget; falling back to the tiled path for this clip.")
+            if isinstance(config, raster_scan.ScanConfig):
+                config = None
     elif impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
     vgrid = vgrid.to(device)

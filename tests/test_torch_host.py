@@ -183,7 +183,8 @@ def test_suggest_scan_config_equals_jax(grid_n, width, height, kw):
 def test_scan_supported_is_standard_variant():
     """The standard variant through d10 and big_grid through d12 (BASELINE
     preset 4 at 4K) are inside the JAX package's budget; d13 is not, and
-    raises rather than switching routes."""
+    takes the tiled Pallas route, as the JAX package's ``_auto_impl`` picks
+    it on its accelerator."""
     for n, size in [(1025, (1920, 1080)), (257, (320, 240)),
                     (2049, (1920, 1080)), (4097, (3840, 2160)),
                     (8193, (3840, 2160))]:
@@ -192,11 +193,8 @@ def test_scan_supported_is_standard_variant():
         assert trs.scan_supported(n, t) == jrs.scan_supported(n, j)
         assert t.big_grid == (n > 1025)
         assert trs.scan_supported(n, t) == (n <= 4097)
-        if n <= 4097:
-            assert trender._auto_impl(n, *size) == "scan"
-        else:
-            with pytest.raises(NotImplementedError, match="budget"):
-                trender._auto_impl(n, *size)
+        assert trender._auto_impl(n, *size) == ("scan" if n <= 4097
+                                                else "pallas")
     assert trs.scan_supported(1025) and trs.scan_supported(2049)
     with pytest.raises(NotImplementedError):
         trs.check_supported(trs.ScanConfig(mxu_march=True, hyps=1))
@@ -427,13 +425,54 @@ def test_quality_and_patch_are_exclusive(checker_texture):
         tcli.render_scene(checker_texture, np.zeros((48, 64), np.uint8), args)
 
 
-def test_big_grid_density_raises(checker_texture):
-    """Past big_grid's budget (d13) the scan raises before it meshes the
-    grid; it never switches to the tiled route on its own."""
-    args = tcli.build_parser().parse_args(
-        ["c.png", "d.png", "--device", "cpu", "-mesh-density", "13"])
-    with pytest.raises(NotImplementedError, match="big_grid"):
-        tcli.render_scene(checker_texture, np.zeros((48, 64), np.uint8), args)
+def test_big_grid_density_raises(checker_texture, monkeypatch):
+    """Past big_grid's budget (d13) the CLI no longer raises before it
+    meshes the grid: it goes on to mesh it (stopped here, before a 8193 x
+    8193 grid is built) and ``render_clip`` takes the tiled route."""
+
+    class Meshed(Exception):
+        pass
+
+    def stop(*args, density=None, **kwargs):
+        raise Meshed(density)
+
+    monkeypatch.setattr(tcli.Mesh, "from_texture", stop)
+    for impl in ("auto", "scan"):
+        args = tcli.build_parser().parse_args(
+            ["c.png", "d.png", "--device", "cpu", "-mesh-density", "13",
+             "--impl", impl])
+        with pytest.raises(Meshed) as info:
+            tcli.render_scene(checker_texture, np.zeros((48, 64), np.uint8),
+                              args)
+        assert info.value.args == (13,)
+    assert trender._auto_impl(8193, 1920, 1080) == "pallas"
+
+
+@pytest.mark.parametrize("impl", ["auto", "scan"])
+def test_past_the_scan_budget_falls_back_to_the_tiled_route(
+        checker_texture, monkeypatch, capsys, impl):
+    """With the scan's budget test false (as at d13), ``render_clip`` logs
+    the reference's NOTICE and renders the clip through the tiled Pallas
+    route: frames equal ``impl="pallas"``'s, on the CPU."""
+    mesh = tdr.Mesh.from_texture(tdr.Texture(checker_texture),
+                                 depth_map=checker_texture[..., 0],
+                                 density=4)
+    camera = tdr.Camera((64, 48), fov_y=18.0)
+    views = tt.matmul(tt.translation(dz=-10.0)[None],
+                      tanim.default_sway(5.0).batch(
+                          tanim.frame_times(3, 60.0)))
+    tiled = trender.render_clip(mesh, camera.projection, views, 64, 48,
+                                device="cpu", impl="pallas")
+    capsys.readouterr()
+    monkeypatch.setattr(trs, "scan_supported", lambda *a, **k: False)
+    got = trender.render_clip(mesh, camera.projection, views, 64, 48,
+                              device="cpu", impl=impl,
+                              config=trs.suggest_scan_config(17, 64, 48))
+    out = capsys.readouterr().out
+    assert "NOTICE: grid n=17 exceeds the scan kernel's VMEM window " in out
+    assert "falling back to the tiled path" in out
+    assert got.shape == (3, 48, 64, 4) and (got[..., :3] > 0).any()
+    np.testing.assert_array_equal(got, tiled)
 
 
 def test_cli_parser_keeps_the_jax_flags():

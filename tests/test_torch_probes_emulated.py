@@ -2,10 +2,9 @@
 
 ``csrc/probes.cu`` is compiled by the host C++ compiler against the
 emulated CUDA runtime of ``test_torch_scan_emulated`` (each thread block
-runs as ``blockDim`` OS threads, one block after another), with what this
-file adds to it: ``__syncthreads`` as that runtime's barrier, the bit casts,
-``cudaFuncSetAttribute`` as a no-op and one static buffer as the dynamic
-shared memory. The package's own wrappers then launch the five kernels on
+runs as ``blockDim`` OS threads, one block after another; its barriers
+and bit casts), with what this file adds to it: ``cudaFuncSetAttribute``
+as a no-op and one static buffer as the dynamic shared memory. The package's own wrappers then launch the five kernels on
 CPU tensors (parameter struct, staging and launch counts as on the card),
 and every output must equal the twin's exactly (float32 compared as int32
 bits). Every ``gather_accum`` instance the cases use runs here, and
@@ -33,19 +32,10 @@ torch.set_num_threads(1)
 
 PROBES_RUNTIME = r"""
 #include <string.h>
+// probes.cu's one shared array is the extern probe_smem below.
+#undef __shared__
 #define __shared__
 #define __host__
-inline void __syncthreads() { __syncthreads_or(false); }
-inline float __uint_as_float(uint32_t u) {
-  float f;
-  memcpy(&f, &u, 4);
-  return f;
-}
-inline uint32_t __float_as_uint(float f) {
-  uint32_t u;
-  memcpy(&u, &f, 4);
-  return u;
-}
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 inline int cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {

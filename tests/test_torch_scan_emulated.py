@@ -2,23 +2,27 @@
 
 ``csrc/scan.cu`` is compiled by the host C++ compiler against a small
 emulation of the CUDA runtime it uses (:data:`EMULATED_RUNTIME`): each
-thread block runs as ``blockDim`` OS threads, ``__syncthreads_or`` is a
-barrier with an OR over the block, and a ``<<<grid, block>>>`` launch runs
-the blocks one after another. The module's own wrappers then launch these
-kernels on CPU tensors (parameter struct, buffer layouts and launch counts
-as on the card), and every output must equal the twin's exactly: records on
-the bands a pass renders, attributes, packed pixels and raster z. Built with
+thread block runs as ``blockDim`` OS threads, ``__syncthreads`` is a
+barrier and ``__syncthreads_or`` a barrier with an OR over the block,
+``__shared__`` variables are statics (one per kernel instance), the shared
+atomics are ``std::atomic_ref`` operations, and a ``<<<grid, block>>>``
+launch runs the blocks one after another. The module's own wrappers then
+launch these kernels on CPU tensors (parameter struct, buffer layouts and
+launch counts as on the card), and every output must equal the twin's
+exactly: records on the bands a pass renders, attributes, packed pixels and
+raster z. Built with
 ``-ffp-contract=off`` and without FMA instructions, the host compiler
 contracts nothing, as nvcc with ``--fmad=false`` does not; ``fmaf`` is the C
 library's correctly rounded one.
 
-Only the kernel paths of the fidelity tiers and of big_grid run here: the
-colfix K = 3 cascade, the dual-column records of the quality tier's pass 1,
-the sparse bands of the patch tier's pass 2, the edge cull in the standard
-variant (``--edge-cull`` at d <= 10), big_grid with edge culling at
-BASELINE preset 4's knobs, and big_grid's chunked march (a fetch window of
-five 128-column chunks) with hyps 2, the K = 3 fan, the cull and the
-wireframe coverage. The rest, and the tiers' frames, are held against the
+The kernel paths here: the default path's (``march_kernel<false, false,
+false>`` at hyps 1 and colfix 1), the colfix K = 3 cascade, the
+dual-column records of the quality tier's pass 1, the sparse bands of the
+patch tier's pass 2, the edge cull in the standard variant
+(``--edge-cull`` at d <= 10), big_grid with edge culling at BASELINE
+preset 4's knobs, and big_grid's chunked march (a fetch window of five
+128-column chunks) with hyps 2, the K = 3 fan, the cull and the wireframe
+coverage. The rest, and the tiers' frames, are held against the
 twins on the card (``test_torch_gpu``, ``test_torch_tiers_gpu``,
 ``test_torch_big_grid_gpu``).
 
@@ -59,6 +63,9 @@ EMULATED_RUNTIME = r"""
 #define __forceinline__ inline
 #define __launch_bounds__(...)
 #define __restrict__
+// Blocks run one after another, so a static per kernel instance serves as
+// the block's shared memory.
+#define __shared__ static
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -75,6 +82,27 @@ inline float __int_as_float(int i) {
   __builtin_memcpy(&f, &i, 4);
   return f;
 }
+inline float __uint_as_float(unsigned u) {
+  float f;
+  __builtin_memcpy(&f, &u, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  __builtin_memcpy(&u, &f, 4);
+  return u;
+}
+inline unsigned long long atomicMin(unsigned long long* a,
+                                    unsigned long long v) {
+  std::atomic_ref<unsigned long long> r(*a);
+  unsigned long long old = r.load();
+  while (v < old && !r.compare_exchange_weak(old, v)) {
+  }
+  return old;
+}
+inline unsigned atomicOr(unsigned* a, unsigned v) {
+  return std::atomic_ref<unsigned>(*a).fetch_or(v);
+}
 // One block's barrier. Call n of a thread ORs into slot n % 3 and reads it
 // after the barrier; thread (0, 0) then clears slot (n + 2) % 3, whose
 // readers (call n - 1) all passed this barrier and whose next writers
@@ -86,6 +114,7 @@ struct BlockSync {
 };
 inline BlockSync* g_block = nullptr;
 inline thread_local int t_calls = 0;
+inline void __syncthreads() { g_block->bar.arrive_and_wait(); }
 inline bool __syncthreads_or(bool b) {
   const int n = t_calls++;
   if (b) g_block->acc[n % 3].store(1);
@@ -185,11 +214,12 @@ def scene_inputs():
 
 
 @pytest.mark.parametrize("over", [
-    dict(hyps=1, colfix=3), dict(quality=True),
+    dict(hyps=1, colfix=1), dict(hyps=1, colfix=3), dict(quality=True),
     dict(hyps=1, colfix=1, edge_cull_threshold=0.25),
     dict(big_grid=True, rmax=48, colfix=1, hyps=1, sr=10, off=4, dmax=5,
          edge_cull_threshold=0.25),
-], ids=["colfix3", "quality-pass1-dualcol", "edge-cull", "big-grid-edge-cull"])
+], ids=["default", "colfix3", "quality-pass1-dualcol", "edge-cull",
+        "big-grid-edge-cull"])
 def test_kernels_equal_twins(emulated, over):
     _, mvps, vgrid, texture = scene_inputs()
     cfg = rs.suggest_scan_config(N, W, H, **over)
