@@ -13,7 +13,8 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    mesh density 10 rendered at 1920x1080 with the shipped scan config, two
    sway frames: records equal, at least 99.9% of output pixels byte-identical
    (the rest at most 1 LSB, or a depth-tie flip). Each kernel is timed with
-   CUDA events beside its plain twin.
+   CUDA events beside its plain twin; ptxas's report of the march's
+   instances and of the solve kernel (registers, spill and stack bytes).
 3. ``main_path``: ``cli.render_scene`` (the scan) on the same arrays for one
    sway loop (300 frames at 60 fps) into an MJPG AVI and ``sample_frame.png``,
    with the launch counters set to 0 just before and read just after.
@@ -28,12 +29,14 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    over 32 frames into an MJPG AVI, with the pair kernel's launch counter set
    to 0 just before and read just after; the count must be the number of
    frame groups of the checked config.
-   ``d13_fallback_path``: ``cli.render_scene -mesh-density 13
-   --frame-batch 1`` (auto impl) at 1080p over 4 frames: past the scan's
-   budget it must log the reference's NOTICE and render through the tiled
-   route, the pair kernel launched and no scan kernel (launch counters set
-   to 0 before, read after); whether the tiled route warned that its
-   window drops candidates is printed, and the peak device memory.
+   ``d13_fallback_path``: ``cli.render_scene -mesh-density 13`` (auto
+   impl, the default ``--frame-batch``) at 1080p over 4 frames: past the
+   scan's budget it must log the reference's NOTICE and render through the
+   tiled route, the pair kernel launched and no scan kernel (launch
+   counters set to 0 before, read after); whether the tiled route warned
+   that its window drops candidates is printed, and the peak device
+   memory; then the route's frames in the default group equal those at one
+   frame a group, byte for byte.
 6. ``control``: ``render_frame_grid_exact`` (the lossless control, grid
    route, 2 strips as bench.py renders 1080p/d10) at sway frame 0: its row
    anchors and seconds, and the PSNR, the share of pixels off by more than 1
@@ -87,7 +90,9 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    each kernel's numbers are one case's at its check trips: gather_accum
    ``gp1_lane`` (gather_probe.py's lane gather, 256 trips), roll_accum
    ``gp5_roll``, onehot_dot ``gp1_onehot``, transpose ``spm_p1_transpose``
-   (library: ``x.t().contiguous()``), march_top2 ``spm_p2_march``.
+   (it and its library call ``x.t().contiguous()`` timed from launches
+   captured in CUDA graphs of two sizes, without the host's launch cost or
+   the graph's), march_top2 ``spm_p2_march``.
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
@@ -257,7 +262,7 @@ def march_ptxas_fields(big):
 
     threads, pixels = rs.march_shape()
     fields = {"block": f"{threads}_threads_x_{pixels}_pixels"}
-    for name, u in rs.march_ptxas().items():
+    for name, u in rs.kernel_ptxas("march").items():
         big_i, cull, wire = (f == "true" for f in
                              name[name.index("<") + 1:-1].split(", "))
         if big_i == big:
@@ -265,6 +270,17 @@ def march_ptxas_fields(big):
                 f"{u['registers']}regs/{u['spill_stores']}B_spill/"
                 f"{u['stack']}B_stack")
     return fields
+
+
+def solve_ptxas_fields():
+    """ptxas's report of the solve kernel: registers, bytes of spill
+    stores, of stack and of shared memory."""
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    return {name.replace(" ", ""): (
+        f"{u['registers']}regs/{u['spill_stores']}B_spill/{u['stack']}"
+        f"B_stack/{u['smem']}B_smem")
+        for name, u in rs.kernel_ptxas("solve").items()}
 
 
 def pair_bounds(planes, tc, tile_pixels):
@@ -367,6 +383,7 @@ def scan_phase(scene, dev):
           kernels_ms_per_frame=f"{sum(v[0] for v in ms.values()):.3f}",
           plain_ms_per_frame=f"{sum(v[1] for v in ms.values()):.1f}")
     phase("kernel_times_march_ptxas", **march_ptxas_fields(big=False))
+    phase("kernel_times_solve_ptxas", **solve_ptxas_fields())
     errs = {"solve": max(stats["solve"]), "march": max(stats["march"]),
             "shade": float(max(stats["shade"]))}
     return {k: {"max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
@@ -561,27 +578,35 @@ def tiled_main_path(colour, depth, scene, cfg, group, tmp):
 
 
 def d13_path(colour, depth, tmp):
-    """Phase 5, continued: ``-mesh-density 13 --frame-batch 1`` at 1080p
-    through ``cli.render_scene`` (auto impl). Past the scan's budget the CLI
-    must log the reference's NOTICE and render through the tiled route on
-    the card: the pair kernel launched, no scan kernel; the tiled route's
-    own window warning, if any, is reported. One frame a group: the tiled
-    prep holds every frame of a group's full-grid planes (~13 GB a frame at
-    d13), and the default 16-frame group runs out of the card's memory."""
+    """Phase 5, continued: ``-mesh-density 13`` at 1080p through
+    ``cli.render_scene`` at the CLI's default ``--frame-batch`` (auto
+    impl). Past the scan's budget the CLI must log the reference's NOTICE
+    and render through the tiled route on the card: the pair kernel
+    launched, no scan kernel; the tiled route's own window warning, if any,
+    is reported, and the run's peak device memory. The tiled prep gathers
+    each frame's windows from its full-grid planes (~13 GB at d13) before
+    the next frame's are built, so a group holds one frame's planes at a
+    time. Then the same frames through the route's ``render_frames_pallas``
+    at the config ``render_clip`` measures, at the default frame batch (a
+    group of more than one frame) and at one frame a group: byte for byte
+    equal."""
     from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_pallas as trp
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.ops import tiled
+    from depthrenderer_tpu_torch.render import clip_mvps, tiled_config
 
+    fb = cli.build_parser().get_default("frame_batch")
     torch.cuda.reset_peak_memory_stats()
     rs.reset_launch_counts()
     tiled.reset_launch_counts()
     captured = io.StringIO()
     with contextlib.redirect_stdout(captured):
         result = cli.render_scene(colour, depth, cli_args(
-            tmp / "d13", D13_FRAMES, ["--frame-batch", "1"],
-            density=D13_DENSITY))
+            tmp / "d13", D13_FRAMES, density=D13_DENSITY))
     log_text = captured.getvalue()
     print(log_text, end="", flush=True)
+    peak = torch.cuda.max_memory_allocated() / 2**30
     launches = dict(rs.LAUNCHES, **tiled.LAUNCHES)
     notice = ("NOTICE: grid n=8193 exceeds the scan kernel's VMEM window "
               "budget; falling back to the tiled path" in log_text)
@@ -591,13 +616,31 @@ def d13_path(colour, depth, tmp):
         raise AssertionError(f"d13: launches {launches}; expected the pair "
                              "kernel only")
     avi, png = check_outputs(result, D13_FRAMES)
+
+    dev = torch.device("cuda")
+    mesh, projection, vgrid, uvgrid, texture = smoke_scene(
+        colour, depth, dev, density=D13_DENSITY)
+    mvps = clip_mvps(projection, clip_views(D13_FRAMES), mesh.transform).to(
+        dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        cfg = tiled_config(mvps, vgrid, uvgrid, WIDTH, HEIGHT)
+    group = trp.frame_group(WIDTH, HEIGHT, cfg, fb)
+    if min(group, D13_FRAMES) < 2:
+        raise AssertionError(f"d13: a group of {group} frame(s) at the "
+                             f"default --frame-batch {fb}")
+    frames = {b: trp.render_frames_pallas(mvps, vgrid, uvgrid, texture,
+                                          WIDTH, HEIGHT, cfg, frame_batch=b)
+              for b in (fb, 1)}
+    if not torch.equal(frames[fb], frames[1]):
+        bad = int((frames[fb] != frames[1]).any(-1).sum())
+        raise AssertionError(f"d13: {bad} pixels differ between groups of "
+                             f"{group} frames and of one")
     phase("d13_fallback_path", density=D13_DENSITY,
-          size=f"{WIDTH}x{HEIGHT}", frames=D13_FRAMES, notice=notice,
-          launches=json.dumps(launches),
-          window_warning="WARNING:" in log_text,
-          peak_gib=f"{torch.cuda.max_memory_allocated() / 2**30:.2f}",
+          size=f"{WIDTH}x{HEIGHT}", frames=D13_FRAMES, frame_batch=fb,
+          group=group, notice=notice, launches=json.dumps(launches),
+          window_warning="WARNING:" in log_text, peak_gib=f"{peak:.2f}",
           incl_encode_fps=f"{D13_FRAMES / result['seconds']:.3f}",
-          avi_bytes=avi, sample_png_bytes=png)
+          frames_equal_batch1=True, avi_bytes=avi, sample_png_bytes=png)
 
 
 def control_fidelity(frame, control):

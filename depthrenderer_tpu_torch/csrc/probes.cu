@@ -23,7 +23,7 @@
 //   onehot_dot    gather_probe build_onehot_mxu: the one-hot contraction done
 //                 as dense f32 multiply-adds over every cell of a table in
 //                 shared memory (not a shortcut to a gather).
-//   transpose     scan_probe_march P1.
+//   transpose     scan_probe_march P1, through shared-memory tiles.
 //   march_top2    scan_probe_march P2: per row y and pixel l the dense sign
 //                 test over the row's C crossing columns and the top 2 keys
 //                 with their lowest column index, summed over the trips.
@@ -269,12 +269,31 @@ onehot_dot_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
     if (w == lane && w < W) out[(size_t)q * W + w] = acc[w];
 }
 
-// out (C, R) = x (R, C) transposed; one block.
-__global__ void __launch_bounds__(256)
+// out (C, R) = x (R, C) transposed, through 32 x 32 tiles in shared memory
+// (a row of 33, so a column's 32 words fall in 32 banks): block (32, 8),
+// one tile each; lane x reads column c0 + x of the tile's rows and writes
+// column r0 + x of its output rows, so both sides are coalesced, and each
+// thread's four rows are loaded before any is stored (one round trip to
+// memory, not one per element).
+constexpr int kTile = 32, kTileRows = 8;
+
+__global__ void __launch_bounds__(kTile * kTileRows)
 transpose_kernel(const float* __restrict__ x, float* __restrict__ out,
                  ProbeParams p) {
-  for (int k = threadIdx.x; k < p.R * p.C; k += blockDim.x)
-    out[(size_t)(k % p.C) * p.R + k / p.C] = x[k];
+  float(*tile)[kTile + 1] = (float(*)[kTile + 1])probe_smem;
+  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+#pragma unroll
+  for (int j = 0; j < kTile; j += kTileRows) {
+    const int r = r0 + ty + j, c = c0 + tx;
+    if (r < p.R && c < p.C) tile[ty + j][tx] = x[(size_t)r * p.C + c];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < kTile; j += kTileRows) {
+    const int c = c0 + ty + j, r = r0 + tx;
+    if (c < p.C && r < p.R) out[(size_t)c * p.R + r] = tile[tx][ty + j];
+  }
 }
 
 // Block y, thread l: per trip q = qx[0, l] + 0.001f * t, f[c] = curve[y, c] -
@@ -420,8 +439,10 @@ int probe_onehot_dot(const void* tab, const void* idx, void* out,
 int probe_transpose(const void* x, void* out, const ProbeParams* p,
                     void* stream) {
   if (p->R <= 0 || p->C <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(1), block(256);
-  transpose_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+  const dim3 grid((p->C + kTile - 1) / kTile, (p->R + kTile - 1) / kTile);
+  const dim3 block(kTile, kTileRows);
+  const size_t smem = (size_t)kTile * (kTile + 1) * 4;
+  transpose_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)x, (float*)out, *p);
   return (int)cudaGetLastError();
 }

@@ -37,8 +37,9 @@
 // there.
 //
 // Launch shape: one CUDA block per 8-row band x 128-column chunk (solve,
-// 1024 threads, thread (x, y) = one grid column) or 8-row band x 128-pixel
-// block (march, 256 threads: warp y = scanline y, four pixels a lane). The
+// 512 threads: four a grid column, two scanlines each) or 8-row band x
+// 128-pixel block (march, 256 threads: warp y = scanline y, four pixels a
+// lane). The
 // TPU kernel gates whole 8x128 blocks on block-wide reductions (slot gate,
 // hypothesis-2 gate, colfix gate, fan row bounds); here they are
 // __syncthreads_or over the same 8x128 pixels, taken on block-uniform
@@ -46,11 +47,22 @@
 //
 // What bounds it on an H100, and what the design does about it: every pass
 // is gathers and divergent per-thread loops, not FLOPs.
-//  * solve walks a column's scan rows [kb, ke) (coalesced across the 128
-//    threads of a row) and writes 3 + 3*sr record planes per slot (3 + 6*sr
-//    with dual_col): bound by record stores (~200 MB per 1080p/d10 frame at
-//    the default sr = 6). Records are written once,
-//    at the crossing, straight from the window (no ring buffer).
+//  * solve writes 3 + 3*sr record planes per slot (3 + 6*sr with
+//    dual_col): bound by record stores (~209 MB per 1080p/d10 frame at the
+//    default sr = 6, 2.41 GB at 4K/d12), far past the 50 MB L2. A thread
+//    walks its column's scan rows [kb, ke) once for two of the band's
+//    scanlines (each row's sy loaded once, coalesced across the warp,
+//    several rows ahead), keeps their crossing rows in shared memory, and
+//    then stores in a loop of its own, uniform across the warp: each store
+//    instruction writes one plane row of 32 neighbouring columns (a full
+//    128-byte line, empty slots' fill included), with streaming stores.
+//    The strip values are gathered from the window, which L1 / L2 hold,
+//    since neighbouring columns cross at nearby rows. Four threads a
+//    column rather than one: each thread's records, each behind its loads,
+//    are a quarter as many, so more stores are in flight per SM (at
+//    1080p/d10 on an H100, one thread a column for all eight scanlines
+//    takes 13 % longer, two 9 %, eight 19 %; capping registers for more
+//    blocks a SM spills and loses).
 //  * march: the reference sweeps every record column of the march window
 //    per pixel (cw columns; big_grid's chunked fetch window: 640 at d11,
 //    1024 at d12). Here each scanline's warp reads each column pair once
@@ -121,14 +133,26 @@ __device__ __forceinline__ ChunkRows chunk_rows(const ScanParams& p, int bnd) {
 // solve: records (nbands, nbr, nrec, 8, cl) for one frame
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(1024)
+// One block per (band, 128-column chunk); thread (x, h) takes grid column
+// x of the chunk and scanlines h * kSolveLines .. + kSolveLines - 1 of the
+// band, and walks the column's scan rows once for both of them.
+constexpr int kSolveLines = 2;
+constexpr int kSolveThreads = 128 * (8 / kSolveLines);
+// Scan rows a thread loads ahead of its crossing tests.
+constexpr int kSolveAhead = 8;
+// Most crossing slots a record keeps (ScanConfig.nbr).
+constexpr int kMaxSlots = 4;
+
+__global__ void __launch_bounds__(kSolveThreads)
 solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
              const int* __restrict__ bounds, const int* __restrict__ bflag,
              float* __restrict__ rec, ScanParams p) {
+  // The crossing row of slot s of scanline y in column x (-1: none).
+  __shared__ int srow[kMaxSlots][8][128];
   const int chunk = blockIdx.x, band = blockIdx.y;
   if (bflag != nullptr && bflag[band] == 0) return;  // sparse band
-  const int y = threadIdx.y;
-  const int c = chunk * 128 + threadIdx.x;
+  const int x = threadIdx.x, y0 = threadIdx.y * kSolveLines;
+  const int c = chunk * 128 + x;
   // The right column of dual-column strips: c + 1, and for the table's last
   // column the last chunk's first (the reference's lane roll within its last
   // chunk; the march masks that column).
@@ -137,53 +161,95 @@ solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
   const ChunkRows cr = chunk_rows(p, bounds[band * p.nchunks + chunk]);
   const int kb = cr.kb, ke = cr.ke;
   const int nbr_eff = (p.nbr >= 2 && cr.multi) ? p.nbr : 1;
-  const float qy = ((float)p.height - (float)(band * 8 + y)) - 0.5f;
-  const size_t plane = (size_t)p.rpad * p.cl;
-  const float* wx = win;
-  const float* wy = win + plane;
-  const float* wz = win + 2 * plane;
+  const size_t cl = p.cl;
+  const size_t plane = (size_t)p.rpad * cl;
   const int base = w0[band] * 8 + cr.origin;  // grid row of window row 0
-  // big_grid records hold global bracket rows.
-  const float kbase = p.big ? (float)cr.origin : 0.0f;
-  const int nrec = 3 + pr * p.sr;
-  const size_t pstride = (size_t)8 * p.cl;
-  float* out = rec + (size_t)band * p.nbr * nrec * pstride + (size_t)y * p.cl
-               + c;
+  // This column's window rows: row r of plane v at wv[r * cl].
+  const float* wx = win + (size_t)base * cl + c;
+  const float* wy = wx + plane;
+  const float* wz = wx + 2 * plane;
 
-  int cnt = 0;
-  for (int k = kb; k < ke && cnt < nbr_eff; ++k) {
-    const size_t r0 = (size_t)(base + k) * p.cl + c;
-    const size_t r1 = r0 + p.cl;
-    const float s_hi = wy[r0], s_lo = wy[r1];
-    if (s_hi >= qy && s_lo < qy) {
-      const float frac = (s_hi - qy) / fmaxf(s_hi - s_lo, 1e-12f);
-      float* o = out + (size_t)cnt * nrec * pstride;
-      o[0] = fmaf(wx[r1] - wx[r0], frac, wx[r0]);
-      o[pstride] = fmaf(wz[r1] - wz[r0], frac, wz[r0]);
-      o[2 * pstride] = (float)k + kbase;
-      // Strip rows k-off .. k-off+sr-1; rows above the window read 0.
+  // The walk: rows k in [kb, ke) in order, s_hi = sy[k] carried from the
+  // row before, s_lo = sy[k + 1] loaded kSolveAhead rows ahead. Scanline y
+  // keeps its first nbr_eff rows with s_hi >= qy > s_lo, the per-thread
+  // loop of the reference's solve for each y.
+  float qy[kSolveLines];
+  int cnt[kSolveLines];
+#pragma unroll
+  for (int i = 0; i < kSolveLines; ++i) {
+    qy[i] = ((float)p.height - (float)(band * 8 + y0 + i)) - 0.5f;
+    cnt[i] = 0;
+  }
+  float s_hi = kb < ke ? wy[(size_t)kb * cl] : 0.0f;
+  for (int k0 = kb; k0 < ke; k0 += kSolveAhead) {
+    float lo[kSolveAhead];
+#pragma unroll
+    for (int j = 0; j < kSolveAhead; ++j)
+      lo[j] = k0 + j < ke ? wy[(size_t)(k0 + j + 1) * cl] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < kSolveAhead; ++j) {
+      if (k0 + j >= ke) break;  // block-uniform
+      const float s_lo = lo[j];
+#pragma unroll
+      for (int i = 0; i < kSolveLines; ++i)
+        if (cnt[i] < nbr_eff && s_hi >= qy[i] && s_lo < qy[i])
+          srow[cnt[i]++][y0 + i][x] = k0 + j;
+      s_hi = s_lo;
+    }
+    bool full = true;
+#pragma unroll
+    for (int i = 0; i < kSolveLines; ++i) full = full && cnt[i] >= nbr_eff;
+    if (full) break;
+  }
+#pragma unroll
+  for (int i = 0; i < kSolveLines; ++i)
+    for (int s = cnt[i]; s < p.nbr; ++s) srow[s][y0 + i][x] = -1;
+
+  // The stores: every (slot, plane, scanline) row of the chunk's 128
+  // columns is one store instruction per warp (a full 128-byte line), empty
+  // slots writing their fill (sxc = zc = FAR, basew = -1e9, zero strips) in
+  // the same instruction; streaming stores, since the march reads each
+  // record once. Strip rows k-off .. k-off+sr-1; rows above the window
+  // read 0.
+  const float kbase = p.big ? (float)cr.origin : 0.0f;  // global rows
+  const int nrec = 3 + pr * p.sr;
+  const size_t pstride = (size_t)8 * cl;
+  const int dr = cright - c;
+  float* out = rec + (size_t)band * p.nbr * nrec * pstride + c;
+  for (int s = 0; s < p.nbr; ++s) {
+    for (int y = y0; y < y0 + kSolveLines; ++y) {
+      const int k = srow[s][y][x];
+      const bool has = k >= 0;
+      float* o = out + ((size_t)s * nrec * 8 + y) * cl;
+      float sxc = kFar, zc = kFar, basew = kNoBase;
+      if (has) {
+        const size_t r0 = (size_t)k * cl, r1 = r0 + cl;
+        const float q = ((float)p.height - (float)(band * 8 + y)) - 0.5f;
+        const float hi = wy[r0], lo = wy[r1];
+        const float frac = (hi - q) / fmaxf(hi - lo, 1e-12f);
+        sxc = fmaf(wx[r1] - wx[r0], frac, wx[r0]);
+        zc = fmaf(wz[r1] - wz[r0], frac, wz[r0]);
+        basew = (float)k + kbase;
+      }
+      __stcs(o, sxc);
+      __stcs(o + pstride, zc);
+      __stcs(o + 2 * pstride, basew);
+#pragma unroll 2
       for (int sj = 0; sj < p.sr; ++sj) {
         const int r = k - p.off + sj;
-        const size_t ri = (size_t)(base + imax(r, 0)) * p.cl;
+        const bool in = has && r >= 0;
+        const size_t ri = (size_t)imax(r, 0) * cl;
         float* os = o + (size_t)(3 + pr * sj) * pstride;
-        os[0] = r >= 0 ? wx[ri + c] : 0.0f;
-        os[pstride] = r >= 0 ? wy[ri + c] : 0.0f;
-        os[2 * pstride] = r >= 0 ? wz[ri + c] : 0.0f;
+        __stcs(os, in ? wx[ri] : 0.0f);
+        __stcs(os + pstride, in ? wy[ri] : 0.0f);
+        __stcs(os + 2 * pstride, in ? wz[ri] : 0.0f);
         if (p.dual) {
-          os[3 * pstride] = r >= 0 ? wx[ri + cright] : 0.0f;
-          os[4 * pstride] = r >= 0 ? wy[ri + cright] : 0.0f;
-          os[5 * pstride] = r >= 0 ? wz[ri + cright] : 0.0f;
+          __stcs(os + 3 * pstride, in ? wx[ri + dr] : 0.0f);
+          __stcs(os + 4 * pstride, in ? wy[ri + dr] : 0.0f);
+          __stcs(os + 5 * pstride, in ? wz[ri + dr] : 0.0f);
         }
       }
-      ++cnt;
     }
-  }
-  for (int s = cnt; s < p.nbr; ++s) {
-    float* o = out + (size_t)s * nrec * pstride;
-    o[0] = kFar;
-    o[pstride] = kFar;
-    o[2 * pstride] = kNoBase;
-    for (int q = 3; q < nrec; ++q) o[(size_t)q * pstride] = 0.0f;
   }
 }
 
@@ -1006,7 +1072,8 @@ void scan_march_shape(int* threads, int* pixels) {
 int scan_solve(const void* win, const void* w0, const void* bounds,
                const void* bflag, void* rec, const ScanParams* p,
                void* stream) {
-  dim3 grid(p->nchunks, p->nbands), block(128, 8);
+  if (p->nbr < 1 || p->nbr > kMaxSlots) return (int)cudaErrorInvalidValue;
+  dim3 grid(p->nchunks, p->nbands), block(128, 8 / kSolveLines);
   solve_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
       (const float*)win, (const int*)w0, (const int*)bounds,
       (const int*)bflag, (float*)rec, *p);

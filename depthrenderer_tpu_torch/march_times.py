@@ -1,14 +1,15 @@
-"""The scan's march kernel on one card: times case by case beside the bound,
-and ptxas's registers and spills per template instance.
+"""The scan's march and solve kernels on one card: times case by case beside
+the bound, and ptxas's registers and spills per kernel instance.
 
-    python -m depthrenderer_tpu_torch.march_times [--scan-src PATH]
-        [--cases NAME ...] [--check] [--reps N] [--json PATH]
+    python -m depthrenderer_tpu_torch.march_times [--beside PATH]
+        [--kernels march solve] [--cases NAME ...] [--check] [--reps N]
+        [--json PATH]
 
-Builds ``csrc/scan.cu`` (or ``--scan-src``: another ``scan.cu`` with the
-same C interface, say a parent commit's, into a library of its own) and
-prints ptxas's report of every ``march_kernel`` instance, then times
-``raster_scan.march_exact`` with CUDA events on seeded synthetic scenes
-(:mod:`.synthetic`), one line per case:
+Builds ``csrc/scan.cu`` and prints ptxas's report of every
+``march_kernel`` instance and of ``solve_kernel``, then times
+``raster_scan.march_exact`` and ``raster_scan.solve_records`` with CUDA
+events on seeded synthetic scenes (:mod:`.synthetic`), one line per kernel
+and case:
 
 - ``d10``: 1080p/d10, the default config, sway frame 0 (the main path's
   march); ``d10_colfix_none``, ``d10_hyps2``: the same records marched
@@ -24,11 +25,21 @@ prints ptxas's report of every ``march_kernel`` instance, then times
   march), frame 74; ``p4``: BASELINE preset 4 (4K/d12, edge cull 0.25, a
   1024-column chunked march), frame 0; each also ``_colfix_none``.
 
+The solve is timed on the cases whose records differ (:data:`SOLVE_CASES`:
+``d10``, the tiers' four passes, ``d11``, ``p4``). ``--beside`` builds
+another ``scan.cu`` with the same C interface too, say a parent commit's
+(into ``build/beside/``), and times its kernels on the same inputs, in
+turns with the package's (other, this, this, other; ``beside_ms`` beside
+``ms``, each the mean of its two runs), so two versions compare in one
+process on one card.
+
 ``--check`` also holds each case's attributes against the plain twin
 (``march_exact_plain``, max abs 0) but preset 4's (the smoke checks six of
-its bands). The bound is the larger of the bytes the march must move over
-the card's memory rate and two comparisons per pixel per swept record
-column over its FP32 rate (:func:`scan_bounds`). Needs a CUDA device.
+its bands), and each solve case's records against ``solve_records_plain``
+(bit for bit, on the bands a pass renders). The bound is the larger of the
+bytes a kernel must move over the card's memory rate and its operations
+over the FP32 rate (:func:`scan_bounds`; the march: two comparisons per
+pixel per swept record column). Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -47,6 +58,9 @@ FP32_OPS_PER_S = 67e12      # H100 SXM: float32 outside the tensor cores
 CASES = ("d10", "d10_colfix_none", "d10_hyps2", "d10_wide", "d10_skip",
          "d10_cull", "d10_wire", "quality1", "quality2", "patch1", "patch2",
          "d11", "d11_colfix_none", "p4", "p4_colfix_none")
+SOLVE_CASES = ("d10", "quality1", "quality2", "patch1", "patch2", "d11",
+               "p4")
+KERNELS = ("march", "solve")
 
 
 def bound(nbytes, ops):
@@ -157,10 +171,22 @@ class Pass:
             prep = prep._replace(mid=mid(prep.mid))
         self.prep = prep
         self.texq = rs.pack_texture(texture)
-        args = (prep.win[0], prep.w0[0], prep.bounds[0])
-        self.rec = rs.solve_records(*args, g, cfg, self.bflag)
-        self.margs = args + (prep.canch[0], prep.mid[0],
-                             rs.minv_rows(mvp)[0], g, cfg, self.bflag)
+        self.sargs = (prep.win[0], prep.w0[0], prep.bounds[0], g, cfg,
+                      self.bflag)
+        self.rec = self.solve()
+        self.margs = self.sargs[:3] + (prep.canch[0], prep.mid[0],
+                                       rs.minv_rows(mvp)[0], g, cfg,
+                                       self.bflag)
+
+    def solve(self):
+        from .ops import raster_scan as rs
+
+        return rs.solve_records(*self.sargs)
+
+    def solve_twin(self):
+        from .ops import raster_scan as rs
+
+        return rs.solve_records_plain(*self.sargs)
 
     def march(self, **kw):
         from .ops import raster_scan as rs
@@ -172,9 +198,9 @@ class Pass:
 
         return rs.march_exact_plain(self.rec, *self.margs, **kw)
 
-    def bound(self, with_z):
+    def bound(self, with_z, kernel="march"):
         return bound(*scan_bounds(self.prep, 0, self.g, self.cfg, self.texq,
-                                  self.bflag, with_z)["march"])
+                                  self.bflag, with_z)[kernel])
 
 
 def build_cases(names):
@@ -245,15 +271,41 @@ def build_cases(names):
     return out
 
 
+def build_libs(beside=None):
+    """Build ``csrc/scan.cu`` (and ``beside``, into ``build/beside/``), one
+    nvcc each, started together -> {label: (source, library, seconds)}."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from .ops import cuda_build
+
+    jobs = {"this": (cuda_build.CSRC / "scan.cu",
+                     cuda_build.library_path("scan.cu"))}
+    if beside is not None:
+        jobs["beside"] = (beside,
+                          cuda_build.BUILD_DIR / "beside" / "libscan.so")
+
+    def one(job):
+        t0 = time.perf_counter()
+        cuda_build.build("scan.cu", force=True, src=job[0], lib=job[1])
+        return job + (time.perf_counter() - t0,)
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = {k: ex.submit(one, job) for k, job in jobs.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--scan-src", type=Path, default=None,
-                    help="time this scan.cu instead of the package's")
+    ap.add_argument("--beside", type=Path, default=None,
+                    help="also time this other scan.cu on the same inputs, "
+                         "in turns with the first")
+    ap.add_argument("--kernels", nargs="+", default=list(KERNELS),
+                    choices=KERNELS)
     ap.add_argument("--cases", nargs="+", default=list(CASES),
                     choices=CASES)
     ap.add_argument("--check", action="store_true",
-                    help="hold each case but preset 4's against the plain "
-                         "twin")
+                    help="hold each case but preset 4's march, and every "
+                         "solve case, against the plain twin")
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--json", type=Path, default=None)
     args = ap.parse_args(argv)
@@ -268,50 +320,86 @@ def main(argv=None):
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
-    src = args.scan_src or cuda_build.CSRC / "scan.cu"
-    lib = (cuda_build.BUILD_DIR / "alt" / "libscan.so" if args.scan_src
-           else cuda_build.library_path("scan.cu"))
-    t0 = time.perf_counter()
-    cuda_build.build("scan.cu", force=True, src=src, lib=lib)
-    build_s = time.perf_counter() - t0
-    rs._load_lib(lib)
-    usage = rs.march_ptxas(lib)
-    print(f"[march_build] src={src} card={card!r} build_s={build_s:.2f}",
-          flush=True)
-    for name, u in usage.items():
-        print(f"[march_ptxas] {name.replace(' ', '')} "
-              + " ".join(f"{k}={v}" for k, v in u.items()), flush=True)
-    result = {"src": str(src), "card": card, "ptxas": usage, "cases": {}}
+    builds = build_libs(args.beside)
+    libs, result = {}, {"card": card, "builds": {}, "cases": {}}
+    for label, (src, lib, build_s) in builds.items():
+        libs[label] = rs._load_lib(lib)
+        print(f"[march_build] lib={label} src={src} card={card!r} "
+              f"build_s={build_s:.2f}", flush=True)
+        usage = {k: rs.kernel_ptxas(k, lib) for k in ("march", "solve")}
+        result["builds"][label] = {"src": str(src), "ptxas": usage}
+        for kernel, instances in usage.items():
+            for name, u in instances.items():
+                print(f"[{kernel}_ptxas] lib={label} {name.replace(' ', '')} "
+                      + " ".join(f"{k}={v}" for k, v in u.items()),
+                      flush=True)
+    rs._lib = libs["this"]
+
+    def timed(fn):
+        """{label: ms}: ``this`` alone, or beside, this, this, beside."""
+        order = (["beside", "this", "this", "beside"] if "beside" in libs
+                 else ["this"])
+        runs = {k: [] for k in libs}
+        for label in order:
+            rs._lib = libs[label]
+            runs[label].append(cuda_ms(fn, args.reps))
+        rs._lib = libs["this"]
+        return {k: sum(v) / len(v) for k, v in runs.items()}
+
     for name, ps, kw in build_cases(args.cases):
         with_z = kw.get("raster_z", False)
-        ms = cuda_ms(lambda: ps.march(**kw), args.reps)
-        b_ms, b_by = ps.bound(with_z)
-        row = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by,
-               "cfg": f"sr{ps.cfg.sr}/hyps{ps.cfg.hyps}/colfix"
-                      f"{ps.cfg.colfix}/cw{ps.cfg.cw}/"
-                      f"big{int(ps.cfg.big_grid)}/"
-                      f"cull{ps.cfg.edge_cull_threshold}"}
-        if args.check and not name.startswith("p4"):
-            att = ps.march(**kw)
-            rows = (slice(None) if ps.bflag is None
-                    else ps.bflag.bool().repeat_interleave(8))
-            err = float((att[:, rows] - ps.twin(**kw)[:, rows]).abs().max())
-            row["max_abs_vs_twin"] = err
-        result["cases"][name] = row
-        print(f"[march] case={name} ms={ms:.4f} bound_ms={b_ms:.4f} "
-              f"bound_by={b_by} "
-              + " ".join(f"{k}={v}" for k, v in row.items()
-                         if k not in ("ms", "bound_ms", "bound_by")),
-              flush=True)
+        rows = {}
+        if "march" in args.kernels:
+            rows["march"] = row = {"cfg": (
+                f"sr{ps.cfg.sr}/hyps{ps.cfg.hyps}/colfix{ps.cfg.colfix}/"
+                f"cw{ps.cfg.cw}/big{int(ps.cfg.big_grid)}/"
+                f"cull{ps.cfg.edge_cull_threshold}")}
+            ms = timed(lambda: ps.march(**kw))
+            if args.check and not name.startswith("p4"):
+                band_rows = (slice(None) if ps.bflag is None
+                             else ps.bflag.bool().repeat_interleave(8))
+                att = ps.march(**kw)
+                row["max_abs_vs_twin"] = float(
+                    (att[:, band_rows] - ps.twin(**kw)[:, band_rows])
+                    .abs().max())
+        if "solve" in args.kernels and name in SOLVE_CASES:
+            rows["solve"] = row = {
+                "cfg": f"sr{ps.cfg.sr}/nbr{ps.cfg.nbr}/"
+                       f"dual{int(ps.cfg.dual_col)}/"
+                       f"big{int(ps.cfg.big_grid)}/rmax{ps.cfg.rmax}"}
+            ms_s = timed(ps.solve)
+            if args.check:
+                on = (slice(None) if ps.bflag is None
+                      else ps.bflag.bool())   # records defined there
+                row["equal_twin"] = torch.equal(
+                    ps.solve()[on].view(torch.int32),
+                    ps.solve_twin()[on].view(torch.int32))
+        for kernel, row in rows.items():
+            t = ms if kernel == "march" else ms_s
+            b_ms, b_by = ps.bound(with_z, kernel)
+            row.update(ms=t["this"], bound_ms=b_ms, bound_by=b_by)
+            if "beside" in t:
+                row["beside_ms"] = t["beside"]
+            result["cases"].setdefault(name, {})[kernel] = row
+            print(f"[{kernel}] case={name} ms={t['this']:.4f} "
+                  + (f"beside_ms={t['beside']:.4f} " if "beside" in t
+                     else "")
+                  + f"bound_ms={b_ms:.4f} bound_by={b_by} "
+                  + " ".join(f"{k}={v}" for k, v in row.items()
+                             if k not in ("ms", "bound_ms", "bound_by",
+                                          "beside_ms")),
+                  flush=True)
         del ps
         torch.cuda.empty_cache()
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps(result, indent=1))
-    bad = {k: v["max_abs_vs_twin"] for k, v in result["cases"].items()
-           if v.get("max_abs_vs_twin", 0.0) != 0.0}
+    bad = {f"{c}/{k}": v for c, ks in result["cases"].items()
+           for k, v in ks.items()
+           if v.get("max_abs_vs_twin", 0.0) != 0.0
+           or not v.get("equal_twin", True)}
     if bad:
-        raise SystemExit(f"march attrs differ from the twin's: {bad}")
+        raise SystemExit(f"kernels differ from their twins: {bad}")
     return 0
 
 

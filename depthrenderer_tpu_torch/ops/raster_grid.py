@@ -341,17 +341,19 @@ def _grid_group(mvps, vertex_grid, uv_grid, width, height,
     ``(cov, attr, px0, py0, jlo, jhi)`` with the (frame, tile) axes merged,
     every anchor's chunks one after the other per tile."""
     ntiles = -(-height // config.tile_h) * -(-width // config.tile_w)
-    parts = []
-    for mvp in mvps:
-        vg = _padded_grid(mvp, vertex_grid, uv_grid, width, height, config)
+
+    def frame_part(f):
+        vg = _padded_grid(mvps[f], vertex_grid, uv_grid, width, height,
+                          config)
         cells_c = vg.shape[2] - 1
         wr, wc, _ = _tile_windows(vg[_SX], vg[_SY], config, width, height,
                                   -(-height // config.tile_h),
                                   -(-width // config.tile_w))
         origin = 2 * (wr.long() * cells_c + wc.long()[:, None])  # (T, A)
-        parts.append(_cell_planes_grid(vg, config) + (
-            origin.reshape(-1), _grid_rel(config, cells_c, vg.device)))
-    cov, attr = tiled.gather_windows(parts)
+        return _cell_planes_grid(vg, config) + (
+            origin.reshape(-1), _grid_rel(config, cells_c, vg.device))
+
+    cov, attr = tiled.gather_frames(frame_part, len(mvps))
     n = len(mvps) * ntiles
     cov = cov.reshape((n, -1) + cov.shape[2:])
     attr = attr.reshape((n, -1) + attr.shape[2:])

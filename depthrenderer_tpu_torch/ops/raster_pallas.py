@@ -170,7 +170,7 @@ def _prep_tile_planes(vg, wr, wc, px0, py0, row_floor, height,
                                     torch.as_tensor(row_floor,
                                                     device=vg.device),
                                     height, config)
-    return tiled.gather_windows([part]) + (jlo, jhi)
+    return tiled.gather_windows(part) + (jlo, jhi)
 
 
 def _frame_windows(vg, wr, wc, py0, row_floor, height, config: RasterConfig):
@@ -218,23 +218,25 @@ def _tile_passes(vg, config: RasterConfig, width, height):
 def _prep_stage_batched(mvps, vertex_grid, uv_grid, width, height,
                         config: RasterConfig):
     """Prep of a frame group, (frame, anchor pass, tile) axes merged ->
-    ``(cov, attr, px0, py0, jlo, jhi)``. The planes of every frame's grid are
-    built once and every window of the group is gathered in one indexing
-    operation per table."""
+    ``(cov, attr, px0, py0, jlo, jhi)``. Each frame's planes are built over
+    its whole grid once and its windows gathered from them in one indexing
+    operation per table, before the next frame's planes are built."""
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     uv_grid = torch.as_tensor(uv_grid, dtype=_F32, device=vertex_grid.device)
     mvps = torch.as_tensor(mvps, dtype=_F32,
                            device=vertex_grid.device).reshape(-1, 4, 4)
-    parts, ints = [], []
-    for mvp in mvps:
-        vg = raster_grid._padded_grid(mvp, vertex_grid, uv_grid, width,
+    ints = []
+
+    def frame_part(f):
+        vg = raster_grid._padded_grid(mvps[f], vertex_grid, uv_grid, width,
                                       height, config)
         wr, wc, px0, py0, floors = _tile_passes(vg, config, width, height)
         part, jlo, jhi = _frame_windows(vg, wr, wc, py0, floors, height,
                                         config)
-        parts.append(part)
         ints.append((px0, py0, jlo, jhi))
-    return tiled.gather_windows(parts) + tuple(
+        return part
+
+    return tiled.gather_frames(frame_part, len(mvps)) + tuple(
         torch.cat(a) for a in zip(*ints))
 
 

@@ -1457,13 +1457,14 @@ def march_shape() -> tuple[int, int]:
     return threads.value, pixels.value
 
 
-def march_ptxas(lib=None) -> dict:
-    """ptxas's registers, spills, stack and shared memory of each
-    ``march_kernel`` instance of ``build/libscan.so``, or of the library
-    ``lib`` (from its build report)."""
+def kernel_ptxas(kernel: str, lib=None) -> dict:
+    """ptxas's registers, spills, stack and shared memory of each instance
+    of ``<kernel>_kernel`` (``solve``, ``march`` or ``shade``) in
+    ``build/libscan.so``, or in the library ``lib`` (from its build
+    report)."""
     lib = cuda_build.library_path("scan.cu") if lib is None else lib
     return {k: v for k, v in cuda_build.ptxas_usage(lib).items()
-            if k.startswith("march_kernel")}
+            if k.startswith(f"{kernel}_kernel")}
 
 
 def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),

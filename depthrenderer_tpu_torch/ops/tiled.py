@@ -3,7 +3,7 @@ x triangle pass and the tile shade.
 
 Both routes (``raster_pallas`` and ``raster_grid``) turn a frame group into
 ``(chunks, 12, TC)`` chunk planes per (tile, anchor pass) with
-:func:`gather_windows`, run :func:`raster_pairs` on them and shade the merged
+:func:`gather_frames`, run :func:`raster_pairs` on them and shade the merged
 tile rows with :func:`shade_tiles`. :func:`raster_pairs` is one hand-written
 CUDA kernel (``csrc/pair.cu``, the TPU ``raster_pallas._pair_kernel``, built
 with nvcc on first use) with a plain PyTorch twin,
@@ -54,34 +54,52 @@ def _window_index(origin, never, rel):
     return idx[:, :, None, :]
 
 
-def _gather(src, idx):
-    """src (12, N) at idx (n, chunks, 1, TC) -> (n, chunks, 12, TC).
+def _gather(src, idx, out=None):
+    """src (12, N) at idx (n, chunks, 1, TC) -> (n, chunks, 12, TC), into
+    ``out`` if given.
 
     One ``torch.gather`` over stride-0 views: neither the source nor the
     index is copied out to the output's size."""
     n, nch, _, tc = idx.shape
     return torch.gather(src[None, None].expand(n, nch, 12, src.shape[1]), 3,
-                        idx.expand(n, nch, 12, tc))
+                        idx.expand(n, nch, 12, tc), out=out)
 
 
-def gather_windows(parts):
-    """Chunk planes of many windows over several frames' plane tables, in
-    one gather per table.
+def gather_windows(part, out=(None, None)):
+    """Chunk planes of one frame's windows, in one gather per table.
 
-    :param parts: per frame ``(cov_src, attr_src, origin, rel)``: the
-        frame's (12, N) plane tables (last column the padding plane), the
-        (n,) int64 table column of each window's first cell, and the
-        (chunks, TC) relative columns (-1 = padding).
-    :return: ``(cov, attr)``, each (sum of n, chunks, 12, TC) float32.
+    :param part: ``(cov_src, attr_src, origin, rel)``: the frame's (12, N)
+        plane tables (last column the padding plane), the (n,) int64 table
+        column of each window's first cell, and the (chunks, TC) relative
+        columns (-1 = padding).
+    :param out: tensors to gather ``cov`` and ``attr`` into.
+    :return: ``(cov, attr)``, each (n, chunks, 12, TC) float32.
     """
-    idxs, col = [], 0
-    for cov, _, origin, rel in parts:
-        never = torch.full_like(origin, col + cov.shape[1] - 1)
-        idxs.append(_window_index(col + origin, never, rel))
-        col += cov.shape[1]
-    idx = torch.cat(idxs)
-    return tuple(_gather(torch.cat([part[k] for part in parts], dim=1), idx)
-                 for k in (0, 1))
+    cov, attr, origin, rel = part
+    idx = _window_index(origin, torch.full_like(origin, cov.shape[1] - 1),
+                        rel)
+    return _gather(cov, idx, out[0]), _gather(attr, idx, out[1])
+
+
+def gather_frames(frame_part, frames: int):
+    """Chunk planes of a frame group's windows, frame after frame ->
+    ``(cov, attr)``, each (frames * n, chunks, 12, TC).
+
+    ``frame_part(f)`` builds frame ``f``'s :func:`gather_windows` part; its
+    windows are gathered into the group's tables before the next frame's
+    part is built, so one frame's full-grid plane tables are resident at a
+    time beside the group's windows (which :data:`COEFF_BUDGET` bounds)."""
+    cov, attr = gather_windows(frame_part(0))
+    if frames == 1:
+        return cov, attr
+    n = cov.shape[0]
+    out = tuple(t.new_empty((frames * n,) + t.shape[1:]) for t in (cov, attr))
+    out[0][:n], out[1][:n] = cov, attr
+    del cov, attr
+    for f in range(1, frames):
+        gather_windows(frame_part(f), (out[0][f * n:(f + 1) * n],
+                                       out[1][f * n:(f + 1) * n]))
+    return out
 
 
 def active_pairs(jlo, jhi, tc: int, tile_pixels: int) -> int:

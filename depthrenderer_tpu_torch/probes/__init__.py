@@ -237,14 +237,16 @@ def geometry(case: Case):
     output row of 128 pixels, staging that row of each table; a sublane
     gather 8 rows x 32 columns, staging all table rows of its 32 columns
     (64 KB at 512 rows); the flat gather one row, staging the whole table.
-    onehot_dot: 8 output rows a block; march_top2: one row y a block."""
+    onehot_dot: 8 output rows a block; march_top2: one row y a block;
+    transpose: a 32 x 32 tile of the input a block."""
     s, l = case.out
     if case.kernel == "onehot_dot":
         return 8, 1, s // 8
     if case.kernel == "march_top2":
         return 1, l, case.table[0]
     if case.kernel == "transpose":
-        return 1, 1, 1
+        r, c = case.table
+        return 32, 32, -(-r // 32) * -(-c // 32)
     bs, bl = (8, 32) if case.axis == "sublane" else (1, l)
     return bs, bl, (s // bs) * (l // bl)
 

@@ -8,13 +8,15 @@ For every case (all of them by default) it prints one line: the kernel
 against its plain twin at the check trip count (bit for bit), then, on the
 card, the probe's own timing: the kernel's time at the case's two trip
 counts (CUDA events around 20 back-to-back launches queued behind a
-device-side sleep, so the host's launch cost is not timed), and their
-difference over the extra trips as ns per lookup and lookups/s; the blocks
-and SMs the launch occupies; and the bound: the shared-memory words a
-gather reads at 32 a clock per SM used, FP32 multiply-adds at 128 a clock
-per SM used (onehot_dot, the baselines, march_top2's subtract and multiply
-per column), or the transpose's bytes over 3.35 TB/s, at the card's
-maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``).
+device-side sleep, so the host's launch cost is not timed; the transpose,
+whose time is its launch, and its library call ``x.t().contiguous()``
+from CUDA graphs of 20 and 40 captured launches: the difference over 20),
+and their difference over the extra trips as ns per lookup and lookups/s;
+the blocks and SMs the launch occupies; and the bound: the shared-memory
+words a gather reads at 32 a clock per SM used, FP32 multiply-adds at 128
+a clock per SM used (onehot_dot, the baselines, march_top2's subtract and
+multiply per column), or the transpose's bytes over 3.35 TB/s, at the
+card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``).
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device;
 ``--device cpu`` runs every wrapper's plain twin (the check is then the
@@ -70,6 +72,43 @@ def device_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device milliseconds one call of ``fn()`` adds to a CUDA graph:
+    graphs of ``reps`` and of ``2 * reps`` captured calls, each replayed
+    three times (CUDA events around each replay, the least kept); their
+    difference over ``reps`` is a call's time without the host's launch
+    cost or the graph's own."""
+    fn()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    best = []
+    for n in (reps, 2 * reps):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        runs = []
+        for _ in range(3):
+            start.record()
+            graph.replay()
+            stop.record()
+            torch.cuda.synchronize()
+            runs.append(start.elapsed_time(stop))
+        best.append(min(runs))
+    return (best[1] - best[0]) / reps
+
+
+def launch_ms(case, fn, reps: int) -> float:
+    """The time of one launch of ``fn``: the transpose, a copy of a few KB
+    whose time is its launch, from CUDA graphs of at least 20 launches
+    (:func:`graph_ms`); the other kernels from ``reps`` back-to-back
+    launches (:func:`device_ms`)."""
+    if case.kernel == "transpose":
+        return graph_ms(fn, max(reps, 20))
+    return device_ms(fn, reps)
+
+
 def wall_ms(fn) -> float:
     if torch.cuda.is_available():
         torch.cuda.synchronize()
@@ -119,7 +158,7 @@ def check_case(case, ins, copies: int = 1) -> dict:
     res = {"check_trips": trips, "equal": equal, "max_abs_err": err,
            "plain_ms": plain_ms}
     if got.is_cuda:
-        res["check_ms"] = device_ms(kernel, 5)
+        res["check_ms"] = launch_ms(case, kernel, 5)
     return res
 
 
@@ -138,7 +177,8 @@ def measure_case(case, ins, reps: int, quick: bool, clock_mhz,
                  n_sms: int, copies: int = 1) -> dict:
     """The probe's slope timing on the card."""
     t1, t2 = timing_trips(case, quick)
-    ms1 = device_ms(lambda: run_case(case, ins, t1, copies=copies), reps)
+    ms1 = launch_ms(case, lambda: run_case(case, ins, t1, copies=copies),
+                    reps)
     bound, by = bound_ns_per_trip(case, clock_mhz, n_sms, copies)
     n = lookups_per_trip(case) * copies
     res = {"trips": [t1, t2], "ms": [ms1], "bound_by": by,
@@ -156,8 +196,13 @@ def measure_case(case, ins, reps: int, quick: bool, clock_mhz,
         res.update(bound_ns_per_lookup=bound / n,
                    x_bound=per_trip / bound if bound > 0 else None)
     if case.kernel == "transpose":
-        res["library_ms"] = device_ms(lambda: ins["x"].t().contiguous(),
-                                      reps)
+        # The library call in a graph too, and both as back-to-back
+        # launches from the host (where the launch itself is timed).
+        library = lambda: ins["x"].t().contiguous()  # noqa: E731
+        res.update(
+            library_ms=graph_ms(library, reps),
+            stream_ms=device_ms(lambda: run_case(case, ins, t1), reps),
+            library_stream_ms=device_ms(library, reps))
     return res
 
 

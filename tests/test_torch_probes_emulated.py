@@ -20,6 +20,7 @@ import ctypes
 import shutil
 import subprocess
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,7 +38,6 @@ PROBES_RUNTIME = r"""
 #define __shared__
 #define __host__
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
-constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
 inline int cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) {
   return 0;
 }
@@ -129,3 +129,18 @@ def test_copies_and_lane_order_equal_twin(emulated, name):
     assert got.shape == (3,) + case.out
     assert torch.equal(got, want)
     assert torch.equal(got[0], probes.run_case(case, ins, 3, plain=True))
+
+
+@pytest.mark.parametrize("shape", [(45, 70), (8, 256), (33, 1)])
+def test_transpose_tiles_equal_twin(emulated, shape):
+    """The transpose's 32 x 32 shared-memory tiles, ragged in both
+    dimensions (partial tiles at the bottom and right edges), at the
+    probe's 8 x 256 and as a single column, bit for bit."""
+    from depthrenderer_tpu_torch.probes import march
+
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32))
+    got = march.transpose(x)
+    assert probes.LAUNCHES["transpose"] == 1
+    assert torch.equal(got.view(torch.int32),
+                       march.transpose_plain(x).view(torch.int32))

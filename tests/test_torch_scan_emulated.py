@@ -75,6 +75,10 @@ inline thread_local uint3v threadIdx, blockIdx;
 inline thread_local dim3 blockDim;
 typedef void* cudaStream_t;
 typedef int cudaError_t;
+constexpr int cudaSuccess = 0, cudaErrorInvalidValue = 1;
+// A streaming store is a plain store here.
+template <class T>
+inline void __stcs(T* p, T v) { *p = v; }
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 inline cudaError_t cudaGetLastError() { return 0; }
 inline float __int_as_float(int i) {
@@ -273,3 +277,119 @@ def test_chunked_big_grid_equals_twins(emulated):
     assert torch.equal(solid[:3], wire[:3])
     assert 0.05 < float(wire[3].mean()) < float(solid[3].mean())
     assert rs.LAUNCHES == {"solve": 1, "march": 2, "shade": 0}
+
+
+# ---------------------------------------------------------------------------
+# solve alone, on windows built to reach each of its cases
+# ---------------------------------------------------------------------------
+
+SOLVE_H, SOLVE_NR = 32, 96   # four bands; window rows of the padded grid
+
+
+def solve_problem(cfg, n_c, seed):
+    """A seeded window, band origins and chunk bounds for ``solve_records``
+    -> (win, w0, bounds, g).
+
+    sy falls half a pixel a grid row with noise of +-3 pixels, so each
+    scanline crosses its column several times (down-crossings of a noisy
+    ramp) at rows that differ from scanline to scanline; every 37th column
+    stays above the frame and crosses nothing. Chunk bounds are drawn per
+    (band, chunk) with the multi bit set at random, the first chunk of band
+    0 scanning from row 0 (strip rows above the window), one chunk scanning
+    no row, and every band's last chunk scanning to ``ke``'s cap (the strip
+    tail at the window's last rows). big_grid packs each chunk's own
+    8-row-aligned window origin."""
+    rng = np.random.default_rng(seed)
+    g = rs.ScanGeometry.of(64, SOLVE_H, SOLVE_NR, n_c, cfg)
+    rows = np.arange(g.rpad, dtype=np.float32)[:, None]
+    sy = SOLVE_H - 0.5 * rows + rng.uniform(-3, 3, (g.rpad, g.cl))
+    sy[:, ::37] = 1e4
+    win = np.stack([rng.uniform(0, 64, (g.rpad, g.cl)), sy,
+                    rng.uniform(-1, 1, (g.rpad, g.cl))]).astype(np.float32)
+    ke_cap = cfg.rmax - (cfg.sr - cfg.off) - 1
+    shape = (g.nbands, g.nchunks)
+    kb = rng.integers(0, 4, shape)
+    ke = rng.integers(ke_cap // 2, ke_cap + 1, shape)
+    kb[0, 0] = 0
+    ke[:, -1] = ke_cap
+    ke[-1, 0] = kb[-1, 0]
+    multi = rng.integers(0, 2, shape)
+    multi[:, -1] = 1
+    # Band b's scanlines cross near grid rows 16 b .. 16 b + 16.
+    origin = np.maximum(16 * np.arange(g.nbands) - 8, 0)
+    if cfg.big_grid:
+        w0c = origin[:, None] + 8 * rng.integers(0, 2, shape)
+        bounds = (w0c // 8) | (kb << 10) | (ke << 19) | (multi << 28)
+        w0 = np.zeros(g.nbands)
+    else:
+        bounds = kb | (ke << 12) | (multi << 24)
+        w0 = origin // 8
+    return (torch.from_numpy(win), torch.tensor(w0, dtype=torch.int32),
+            torch.tensor(bounds.reshape(-1), dtype=torch.int32), g)
+
+
+def bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("case", [
+    "multi-nbr4", "dual-col-wrap", "big-grid-ke-cap", "sparse-bands"])
+def test_solve_equals_twin(emulated, case):
+    """The solve kernel's records equal the twin's bit for bit: several
+    slots a scanline at nbr 4 (others filling some and taking the empty
+    fill), crossing rows that differ across a column's eight scanlines,
+    strip rows above the window, dual-column strips with the last-chunk
+    wrap, big_grid's chunk windows to ke's cap, and unflagged bands, which
+    the kernel must leave unwritten."""
+    cfg = {
+        "multi-nbr4": rs.ScanConfig(rmax=48, sr=6, off=2, nbr=4, hyps=1),
+        "dual-col-wrap": rs.ScanConfig(rmax=48, sr=6, off=2, nbr=2,
+                                       hyps=1, dual_col=True),
+        "big-grid-ke-cap": rs.ScanConfig(rmax=32, sr=10, off=4, nbr=3,
+                                         hyps=1, big_grid=True),
+        "sparse-bands": rs.ScanConfig(rmax=48, sr=6, off=2, nbr=4, hyps=1),
+    }[case]
+    win, w0, bounds, g = solve_problem(cfg, 384 if case == "sparse-bands"
+                                       else 256, seed=len(case))
+    bflag = None
+    if case == "sparse-bands":
+        bflag = torch.tensor([1, 0, 1, 0], dtype=torch.int32)
+        rec = torch.full((g.nbands, cfg.nbr, cfg.nrec, 8, g.cl),
+                         float("nan"))
+        rs._launch("scan_solve", [win.data_ptr(), w0.data_ptr(),
+                                  bounds.data_ptr(), bflag.data_ptr(),
+                                  rec.data_ptr()], rs._params(g, cfg))
+        assert rec[bflag == 0].isnan().all()
+    else:
+        rec = rs.solve_records(win, w0, bounds, g, cfg)
+    assert rs.LAUNCHES["solve"] == 1
+    want = rs.solve_records_plain(win, w0, bounds, g, cfg, bflag)
+    on = slice(None) if bflag is None else bflag.bool()
+    assert torch.equal(bits(rec[on]), bits(want[on]))
+
+    # The cases the problem is built to reach are reached.
+    basew = want[on][:, :, 2]                           # (B, nbr, 8, CL)
+    filled = basew != rs._NOBASE
+    assert filled[:, 0].any() and not filled[..., ::37].any()
+    both = filled[:, 0, 0] & filled[:, 0, 7]
+    assert (basew[:, 0, 0] != basew[:, 0, 7])[both].any()
+    if cfg.nbr == 4:
+        assert filled[:, 3].any()
+        assert (filled[:, 1] & ~filled[:, 3]).any()
+    if not cfg.big_grid:
+        assert (filled & (basew < cfg.off)).any()
+    if cfg.dual_col:
+        # The last column's right strips are the last chunk's first column.
+        c = g.cl - 1
+        assert filled[..., c].any()
+        k = basew[:, 0, :, c][filled[:, 0, :, c]].long()
+        right = rec[on][:, 0, 3 + 3, :, c][filled[:, 0, :, c]]
+        b = torch.nonzero(filled[:, 0, :, c])[:, 0]
+        rows = w0.long()[b] * 8 + k - cfg.off
+        assert torch.equal(right[rows >= 0],
+                           win[0, rows[rows >= 0], g.cl - 128])
+    if cfg.big_grid:
+        ke_cap = cfg.rmax - (cfg.sr - cfg.off) - 1
+        origin = rs.unpack_bounds(bounds, w0, g, cfg)[0]
+        local = basew - origin.repeat_interleave(128, dim=1)[:, None, None]
+        assert (filled & (local == ke_cap - 1)).any()
