@@ -13,32 +13,42 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    mesh density 10 rendered at 1920x1080 with the shipped scan config, two
    sway frames: records equal, at least 99.9% of output pixels byte-identical
    (the rest at most 1 LSB, or a depth-tie flip). Each kernel is timed with
-   CUDA events beside its plain twin; ptxas's report of the march's
-   instances and of the solve kernel (registers, spill and stack bytes).
+   CUDA events beside its plain twin (the shade, whose device time is below
+   its wrapper's host cost, by the slope between CUDA graphs of 20 and 40
+   launches, beside ``F.grid_sample`` timed the same way: its library
+   call); ptxas's report of the march's instances and of the solve kernel
+   (registers, spill and stack bytes).
 3. ``main_path``: ``cli.render_scene`` (the scan) on the same arrays for one
    sway loop (300 frames at 60 fps) into an MJPG AVI and ``sample_frame.png``,
    with the launch counters set to 0 just before and read just after.
-4. ``tiled_kernel_vs_plain``: the pair kernel against ``raster_pairs_plain``
-   on the first kernel launch of the tiled CLI run below, as that run makes
-   it: the config ``render_clip`` measures from the run's 32 views
-   (``measured_config(q=0.995, anchors=1)`` over frames 0, 15 and 31), its
-   first frame group. Tile rows equal, frames at the scan's bar; kernel,
-   plain twin and prep times, active pairs, plane bytes and peak memory.
+4. ``tiled_kernel_vs_plain``: the pair kernel (on the group's plane
+   tables) against ``raster_pairs_plain`` (on the windows gathered out of
+   them, frame by frame) on the first kernel launch of the tiled CLI run
+   below, as that run makes it: the config ``render_clip`` measures from the
+   run's 32 views (``measured_config(q=0.995, anchors=1)`` over frames 0, 15
+   and 31), its first frame group. Tile rows equal bit for bit, frames at
+   the scan's bar; kernel, plain twin and prep times, active pairs, table
+   and read bytes a frame, peak memory and ptxas's report of
+   ``pair_kernel``.
 5. ``tiled_path``: ``render_clip(impl="pallas")`` render-only frames/s over
    64 frames after one warm-up group, then ``cli.render_scene --impl pallas``
    over 32 frames into an MJPG AVI, with the pair kernel's launch counter set
    to 0 just before and read just after; the count must be the number of
-   frame groups of the checked config.
+   frame groups of the checked config. Then the same clip through
+   ``render_clip`` with each launch's rows held against the twin on 16
+   kernel tiles of every frame (``PairCheck``, bit for bit).
    ``d13_fallback_path``: ``cli.render_scene -mesh-density 13`` (auto
    impl, the default ``--frame-batch``) at 1080p over 4 frames: past the
    scan's budget it must log the reference's NOTICE and render through the
    tiled route, the pair kernel launched and no scan kernel (launch
    counters set to 0 before, read after); whether the tiled route warned
    that its window drops candidates is printed, and the peak device
-   memory; then the route's frames in the default group equal those at one
-   frame a group, byte for byte.
+   memory; then the route's frames in the default group (each launch's rows
+   on sampled tiles against the twin) equal those at one frame a group,
+   byte for byte.
 6. ``control``: ``render_frame_grid_exact`` (the lossless control, grid
-   route, 2 strips as bench.py renders 1080p/d10) at sway frame 0: its row
+   route, 2 strips as bench.py renders 1080p/d10) at sway frame 0, each pair
+   kernel launch's rows on sampled tiles against the twin: its row
    anchors and seconds, and the PSNR, the share of pixels off by more than 1
    LSB and the share off by more than 8 LSB (bench.py's flips) of the scan
    frame and of the tiled frame against it; the scan frame and the control
@@ -74,7 +84,8 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    --edge-cull 0.25`` over 16 frames (launch counters set to 0 before, read
    after: ``solve``, ``march`` and ``shade`` each = frames); and frame 0
    against ``render_frame_grid_exact`` at 16 strips with the same edge cull,
-   as bench.py renders 4K/d12 (PSNR, shares, holes), then the scan frame
+   as bench.py renders 4K/d12 (PSNR, shares, holes; each pair kernel
+   launch's rows on sampled tiles against the twin), then the scan frame
    and that control on 16 rows against the float64 oracle.
 
 9. ``probes``: the probe kernels of ``csrc/probes.cu`` (the TPU probes of
@@ -97,7 +108,8 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
 run's data needs over 67 TFLOP/s (float32 outside the tensor cores), the
-H100 SXM's published peaks. The second-to-last line is the kernel table as
+H100 SXM's published peaks (the pair kernel: ``march_times.pair_bounds``,
+12 operations an active pair). The second-to-last line is the kernel table as
 JSON, the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 2 and prints no result.
 """
@@ -140,9 +152,9 @@ MARCH_BANDS, ORACLE_ROWS = 6, 16
 # The control's strips at 1080p/d10, as bench.py renders it; a "flip" is a
 # pixel off by more than 8 LSB, bench.py's winner-flip measure.
 CONTROL_STRIPS = 2
-# Operations per active (pixel, triangle) pair of the pair kernel: four
-# planes at fma + mul + add (4 each) and six comparisons.
-PAIR_OPS = 22
+# Kernel tiles of every frame that each pair kernel launch of a phase holds
+# against the twin (half the busiest, half evenly spaced).
+PAIR_SAMPLE = 16
 KERNELS = {
     "solve": ("depthrenderer_tpu_torch/csrc/scan.cu",
               "depthrenderer_tpu/ops/raster_scan.py:815"),
@@ -283,25 +295,86 @@ def solve_ptxas_fields():
         for name, u in rs.kernel_ptxas("solve").items()}
 
 
-def pair_bounds(planes, tc, tile_pixels):
-    """Bytes and operations of the pair kernel on these planes: the active
-    chunks' planes read once, the rows written once, 22 operations per
-    active pair."""
-    from depthrenderer_tpu_torch.ops import tiled
+def pair_ptxas_fields():
+    """ptxas's report of the pair kernel (registers, bytes of spill stores,
+    of stack and of static shared memory)."""
+    from depthrenderer_tpu_torch.ops import cuda_build
 
-    cov, attr, px0, py0, jlo, jhi = planes
-    chunks = int((jhi.long() - jlo.long()).sum())
-    pairs = tiled.active_pairs(jlo, jhi, tc, tile_pixels)
-    moved = (chunks * 2 * 12 * tc * 4 + nbytes(px0, py0, jlo, jhi)
-             + cov.shape[0] * tile_pixels * 8 * 4)
-    return moved, PAIR_OPS * pairs, pairs
+    u = cuda_build.ptxas_usage(cuda_build.library_path("pair.cu"))[
+        "pair_kernel"]
+    return {"pair_ptxas": f"{u['registers']}regs/{u['spill_stores']}B_spill/"
+                          f"{u['stack']}B_stack/{u['smem']}B_smem"}
+
+
+def rows_equal(a, b):
+    """Tile rows equal bit for bit (float32 compared as int32)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+class PairCheck:
+    """While a phase runs, every pair kernel launch's tile rows on
+    PAIR_SAMPLE kernel tiles of each frame (half of frame 0's busiest, half
+    evenly spaced; the same tiles in every frame) against the plain twin on
+    the windows gathered out of the tables, bit for bit. The twin's seconds
+    are kept apart (``seconds``), so a phase can leave them out of its own
+    time."""
+
+    def __init__(self):
+        self.launches = self.tiles = 0
+        self.seconds = 0.0
+
+    def __enter__(self):
+        from depthrenderer_tpu_torch.ops import tiled
+
+        self.module, self.kernel = tiled, tiled.raster_pairs
+        tiled.raster_pairs = self
+        return self
+
+    def __exit__(self, *exc):
+        self.module.raster_pairs = self.kernel
+
+    def __call__(self, *args):
+        from depthrenderer_tpu_torch.march_times import (_frame_tiles,
+                                                          twin_rows)
+
+        rows = self.kernel(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes, height, cfg = args[:8], args[8], args[9]
+        frames, m, _ = _frame_tiles(planes)
+        work = (planes[7] - planes[6])[:m].long()
+        k = min(PAIR_SAMPLE // 2, m)
+        sel = torch.unique(torch.cat([
+            torch.topk(work, k).indices,
+            torch.linspace(0, m - 1, k, device=work.device).round().long()]))
+        want = twin_rows(planes, height, cfg, sel)
+        idx = torch.cat([f * m + sel for f in range(frames)])
+        if not rows_equal(rows[idx], want):
+            bad = int((rows[idx] != want).sum())
+            raise AssertionError(f"{bad} tile-row values differ between the "
+                                 "pair kernel and its twin")
+        self.launches += 1
+        self.tiles += idx.numel()
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return rows
+
+    def fields(self):
+        if self.launches == 0:
+            raise AssertionError("no pair kernel launch was checked")
+        return {"pair_rows_equal": True,
+                "pair_checked": f"{self.launches}launches/"
+                                f"{self.tiles}tiles"}
 
 
 def scan_phase(scene, dev):
     """Phase 2: the scan kernels against their plain twins at 1080p/d10."""
     from depthrenderer_tpu_torch import animation, transforms
-    from depthrenderer_tpu_torch.march_times import bound, scan_bounds
+    from depthrenderer_tpu_torch.march_times import (bound, grid_sample_call,
+                                                      scan_bounds)
     from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.probes.__main__ import graph_ms
     from depthrenderer_tpu_torch.render import clip_mvps
 
     mesh, projection, vgrid, _, texture = scene
@@ -368,10 +441,16 @@ def scan_phase(scene, dev):
                   wall_ms(lambda: rs.solve_records_plain(*w0a, g, cfg))),
         "march": (cuda_ms(lambda: rs.march_exact(rec, *march_args), 20),
                   wall_ms(lambda: rs.march_exact_plain(rec, *march_args))),
-        "shade": (cuda_ms(lambda: rs.shade(att, texq, g, cfg, "texture"), 50),
+        # The shade's ~0.02 ms is below the wrapper's host cost: its device
+        # time is the slope between CUDA graphs of 20 and 40 launches.
+        "shade": (graph_ms(lambda: rs.shade(att, texq, g, cfg, "texture"),
+                           20),
                   wall_ms(lambda: rs.shade_plain(att, texq, *texq.shape,
                                                  "texture"))),
     }
+    shade_stream_ms = cuda_ms(lambda: rs.shade(att, texq, g, cfg, "texture"),
+                              50)
+    library = {"shade": graph_ms(grid_sample_call(att, texq), 20)}
     prep_ms = cuda_ms(lambda: rs.prep_scan(mvps.to(dev), vgrid, WIDTH, HEIGHT,
                                            cfg), 5) / mvps.shape[0]
     bounds = {k: bound(*v) for k, v in
@@ -379,6 +458,9 @@ def scan_phase(scene, dev):
     phase("kernel_times", **{f"{k}_ms": f"{v[0]:.4f}" for k, v in ms.items()},
           **{f"{k}_plain_ms": f"{v[1]:.2f}" for k, v in ms.items()},
           **{f"{k}_bound_ms": f"{v[0]:.4f}" for k, v in bounds.items()},
+          shade_timing="graph_slope_20_40",
+          shade_stream_ms=f"{shade_stream_ms:.4f}",
+          shade_library_ms=f"{library['shade']:.4f}",
           prep_ms_per_frame=f"{prep_ms:.3f}",
           kernels_ms_per_frame=f"{sum(v[0] for v in ms.values()):.3f}",
           plain_ms_per_frame=f"{sum(v[1] for v in ms.values()):.1f}")
@@ -387,7 +469,8 @@ def scan_phase(scene, dev):
     errs = {"solve": max(stats["solve"]), "march": max(stats["march"]),
             "shade": float(max(stats["shade"]))}
     return {k: {"max_abs_err": errs[k], "ms": ms[k][0], "plain_ms": ms[k][1],
-                "bound_ms": bounds[k][0], "bound_by": bounds[k][1]}
+                "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+                "library_ms": library.get(k)}
             for k in ms}
 
 
@@ -471,17 +554,20 @@ def tiled_phase(scene, dev):
     run's first kernel launch: the config ``render_clip`` measures from that
     run's views, its first frame group -> (config, group, kernel fields)."""
     from depthrenderer_tpu_torch import cli
-    from depthrenderer_tpu_torch.march_times import bound
+    from depthrenderer_tpu_torch.march_times import (bound, pair_bounds,
+                                                      twin_rows)
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
     from depthrenderer_tpu_torch.ops import raster_pallas as trp
     from depthrenderer_tpu_torch.ops import tiled
     from depthrenderer_tpu_torch.render import clip_mvps, tiled_config
 
     mesh, projection, vgrid, uvgrid, texture = scene
+    n = vgrid.shape[0]
     # render_clip's own steps on the CLI run's views (default quantile).
     mvps = clip_mvps(projection, clip_views(TILED_FRAMES),
                      mesh.transform).to(dev)
     cfg = tiled_config(mvps, vgrid, uvgrid, WIDTH, HEIGHT)
-    group = trp.frame_group(WIDTH, HEIGHT, cfg,
+    group = trg.frame_group(n, n, cfg,
                             cli.build_parser().get_default("frame_batch"))
     first = mvps[:group]
     torch.cuda.synchronize()
@@ -489,12 +575,13 @@ def tiled_phase(scene, dev):
     planes = trp._prep_stage_batched(first, vgrid, uvgrid, WIDTH, HEIGHT, cfg)
     rows_k = tiled.raster_pairs(*planes, HEIGHT, cfg)
     torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
     t0 = time.perf_counter()
-    rows_p = tiled.raster_pairs_plain(*planes, HEIGHT, cfg)
+    rows_p = twin_rows(planes, HEIGHT, cfg)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     max_abs = float((rows_k - rows_p).abs().max())
-    if not torch.equal(rows_k, rows_p):
+    if not rows_equal(rows_k, rows_p):
         bad = int((rows_k != rows_p).sum())
         raise AssertionError(f"{bad} tile-row values differ between the pair "
                              "kernel and its twin")
@@ -509,29 +596,32 @@ def tiled_phase(scene, dev):
                              f"{more:.6f} > 1 LSB, {covered:.3f} covered")
     del rows_p, frames_p, frames_k
     # Times of the same launch, kernel beside plain twin.
-    tc = planes[0].shape[-1]
-    P = cfg.tile_h * cfg.tile_w
+    tc = planes[3].shape[1]
     kernel_ms = cuda_ms(lambda: tiled.raster_pairs(*planes, HEIGHT, cfg), 3)
+    del planes, rows_k
     prep_ms = cuda_ms(lambda: trp._prep_stage_batched(
         first, vgrid, uvgrid, WIDTH, HEIGHT, cfg), 2) / group
-    moved, ops, pairs = pair_bounds(planes, tc, P)
+    planes = trp._prep_stage_batched(first, vgrid, uvgrid, WIDTH, HEIGHT, cfg)
+    moved, ops, pairs = pair_bounds(planes, cfg)
     bound_ms, bound_by = bound(moved, ops)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    plane_bytes = trp._coeff_bytes_per_frame(WIDTH, HEIGHT, cfg)
+    table_gb = trg.table_bytes_per_frame(n, n, cfg) / 1e9
     phase("tiled_kernel_vs_plain", frames=group, **config_fields(cfg),
           rows_equal=True, identical_share=f"{same:.6f}",
           off_more_share=f"{more:.6f}", pairs_ms=f"{kernel_ms:.4f}",
           pairs_ms_per_frame=f"{kernel_ms / group:.4f}",
           pairs_plain_ms=f"{plain_ms:.1f}",
           pairs_bound_ms=f"{bound_ms:.4f}", bound_by=bound_by,
+          bound_share=f"{bound_ms / kernel_ms:.4f}",
           prep_ms_per_frame=f"{prep_ms:.3f}",
           active_pairs_per_frame=pairs // group,
-          plane_gb_per_frame=f"{plane_bytes / 1e9:.3f}",
-          peak_gib=f"{peak:.2f}")
-    del planes, rows_k
+          table_gb_per_frame=f"{table_gb:.3f}",
+          read_gb_per_frame=f"{moved / group / 1e9:.3f}",
+          peak_gib=f"{peak:.2f}", dyn_smem_bytes=2 * 3 * tc * 16,
+          **pair_ptxas_fields())
+    del planes
     return cfg, group, {"max_abs_err": max_abs, "ms": kernel_ms,
                         "plain_ms": plain_ms, "bound_ms": bound_ms,
-                        "bound_by": bound_by}
+                        "bound_by": bound_by, "library_ms": None}
 
 
 def config_fields(cfg):
@@ -548,6 +638,7 @@ def tiled_main_path(colour, depth, scene, cfg, group, tmp):
     pallas, the pair kernel's launch counter read around the CLI run."""
     from depthrenderer_tpu_torch import cli
     from depthrenderer_tpu_torch.ops import tiled
+    from depthrenderer_tpu_torch.render import render_clip
 
     mesh, projection = scene[:2]
     torch.cuda.reset_peak_memory_stats()
@@ -568,12 +659,17 @@ def tiled_main_path(colour, depth, scene, cfg, group, tmp):
         raise AssertionError(f"{launches} pair launches on the tiled path, "
                              f"{want} with the checked config")
     avi, png = check_outputs(result, TILED_FRAMES)
+    # The same clip again through render_clip, each launch's rows held
+    # against the twin (outside the timed runs).
+    with PairCheck() as check:
+        render_clip(mesh, projection, clip_views(TILED_FRAMES), WIDTH, HEIGHT,
+                    on_frames=lambda s, f: None, device="cuda", impl="pallas")
     phase("tiled_path", render_frames=TILED_RENDER_FRAMES,
           render_only_fps=f"{fps:.2f}", render_peak_gib=f"{peak:.2f}",
           frames=TILED_FRAMES, **config_fields(cfg), group=group,
           launches=json.dumps({"pairs": launches}),
           incl_encode_fps=f"{TILED_FRAMES / result['seconds']:.2f}",
-          avi_bytes=avi, sample_png_bytes=png)
+          avi_bytes=avi, sample_png_bytes=png, **check.fields())
     return launches
 
 
@@ -583,14 +679,15 @@ def d13_path(colour, depth, tmp):
     impl). Past the scan's budget the CLI must log the reference's NOTICE
     and render through the tiled route on the card: the pair kernel
     launched, no scan kernel; the tiled route's own window warning, if any,
-    is reported, and the run's peak device memory. The tiled prep gathers
-    each frame's windows from its full-grid planes (~13 GB at d13) before
-    the next frame's are built, so a group holds one frame's planes at a
-    time. Then the same frames through the route's ``render_frames_pallas``
-    at the config ``render_clip`` measures, at the default frame batch (a
-    group of more than one frame) and at one frame a group: byte for byte
-    equal."""
+    is reported, and the run's peak device memory. A group holds its
+    frames' full-grid plane tables (~12.9 GB a frame at d13), which the pair
+    kernel reads in place. Then the same frames through the route's
+    ``render_frames_pallas`` at the config ``render_clip`` measures, at the
+    default frame batch (a group of more than one frame; each launch's rows
+    on sampled tiles against the twin) and at one frame a group: byte for
+    byte equal."""
     from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
     from depthrenderer_tpu_torch.ops import raster_pallas as trp
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.ops import tiled
@@ -624,13 +721,20 @@ def d13_path(colour, depth, tmp):
         dev)
     with contextlib.redirect_stdout(io.StringIO()):
         cfg = tiled_config(mvps, vgrid, uvgrid, WIDTH, HEIGHT)
-    group = trp.frame_group(WIDTH, HEIGHT, cfg, fb)
+    group = trg.frame_group(vgrid.shape[0], vgrid.shape[1], cfg, fb)
     if min(group, D13_FRAMES) < 2:
         raise AssertionError(f"d13: a group of {group} frame(s) at the "
                              f"default --frame-batch {fb}")
-    frames = {b: trp.render_frames_pallas(mvps, vgrid, uvgrid, texture,
-                                          WIDTH, HEIGHT, cfg, frame_batch=b)
-              for b in (fb, 1)}
+    torch.cuda.reset_peak_memory_stats()
+    with PairCheck() as check:
+        frames = {fb: trp.render_frames_pallas(
+            mvps, vgrid, uvgrid, texture, WIDTH, HEIGHT, cfg,
+            frame_batch=fb)}
+    group_peak = torch.cuda.max_memory_allocated() / 2**30
+    frames[1] = trp.render_frames_pallas(mvps, vgrid, uvgrid, texture, WIDTH,
+                                         HEIGHT, cfg, frame_batch=1)
+    table_gb = trg.table_bytes_per_frame(vgrid.shape[0], vgrid.shape[1],
+                                         cfg) / 1e9
     if not torch.equal(frames[fb], frames[1]):
         bad = int((frames[fb] != frames[1]).any(-1).sum())
         raise AssertionError(f"d13: {bad} pixels differ between groups of "
@@ -639,8 +743,11 @@ def d13_path(colour, depth, tmp):
           size=f"{WIDTH}x{HEIGHT}", frames=D13_FRAMES, frame_batch=fb,
           group=group, notice=notice, launches=json.dumps(launches),
           window_warning="WARNING:" in log_text, peak_gib=f"{peak:.2f}",
+          group_peak_gib=f"{group_peak:.2f}",
+          table_gb_per_frame=f"{table_gb:.3f}",
           incl_encode_fps=f"{D13_FRAMES / result['seconds']:.3f}",
-          frames_equal_batch1=True, avi_bytes=avi, sample_png_bytes=png)
+          frames_equal_batch1=True, avi_bytes=avi, sample_png_bytes=png,
+          **check.fields())
 
 
 def control_fidelity(frame, control):
@@ -667,10 +774,11 @@ def control_phase(scene, tiled_cfg, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    control, stats = trg.render_frame_grid_exact(
-        mvps[0].to(dev), vgrid, uvgrid, texture, WIDTH, HEIGHT,
-        strips=CONTROL_STRIPS, with_stats=True)
-    seconds = time.perf_counter() - t0
+    with PairCheck() as check:
+        control, stats = trg.render_frame_grid_exact(
+            mvps[0].to(dev), vgrid, uvgrid, texture, WIDTH, HEIGHT,
+            strips=CONTROL_STRIPS, with_stats=True)
+    seconds = time.perf_counter() - t0 - check.seconds
     peak = torch.cuda.max_memory_allocated() / 2**30
     scan_cfg = rs.suggest_scan_config(n, WIDTH, HEIGHT)
     raw, _ = rs.render_frames_scan(mvps, vgrid, uvgrid, texture, WIDTH,
@@ -690,7 +798,7 @@ def control_phase(scene, tiled_cfg, dev):
         raise AssertionError(f"control frame covered share {covered:.3f}")
     phase("control", frame=0, row_anchors=cfg.row_anchors,
           window=f"{cfg.window_rows}x{cfg.window_cols}",
-          strips=stats["strips"], seconds=f"{seconds:.2f}",
+          strips=stats["strips"], seconds=f"{seconds:.2f}", **check.fields(),
           peak_gib=f"{peak:.2f}", covered_share=f"{covered:.4f}", **fields,
           **oracle_fidelity(mvps[0], vgrid, uvgrid, texture, WIDTH, HEIGHT,
                             {"scan": scan, "control": control}))
@@ -1096,11 +1204,12 @@ def big_grid_path(dev, tmp):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    control, stats = trg.render_frame_grid_exact(
-        mvp[0].to(dev), vgrid, uvgrid, texture, BIG_WIDTH, BIG_HEIGHT,
-        strips=BIG_CONTROL_STRIPS, edge_cull_threshold=EDGE_CULL,
-        with_stats=True)
-    seconds = time.perf_counter() - t0
+    with PairCheck() as check:
+        control, stats = trg.render_frame_grid_exact(
+            mvp[0].to(dev), vgrid, uvgrid, texture, BIG_WIDTH, BIG_HEIGHT,
+            strips=BIG_CONTROL_STRIPS, edge_cull_threshold=EDGE_CULL,
+            with_stats=True)
+    seconds = time.perf_counter() - t0 - check.seconds
     peak = torch.cuda.max_memory_allocated() / 2**30
     raw, _ = rs.render_frames_scan(mvp, vgrid, uvgrid, texture, BIG_WIDTH,
                                    BIG_HEIGHT, cfg)
@@ -1113,7 +1222,7 @@ def big_grid_path(dev, tmp):
     phase("big_grid_control", frame=0, strips=stats["strips"],
           row_anchors=ccfg.row_anchors,
           window=f"{ccfg.window_rows}x{ccfg.window_cols}",
-          seconds=f"{seconds:.2f}", peak_gib=f"{peak:.2f}",
+          seconds=f"{seconds:.2f}", peak_gib=f"{peak:.2f}", **check.fields(),
           psnr_db=f"{fid[0]:.2f}", off_more_share=f"{fid[1]:.6f}",
           flip_share=f"{fid[2]:.6f}",
           hole_share=f"{float((cov_c & ~cov_s).mean()):.6f}",

@@ -36,6 +36,10 @@ _I32 = torch.int32
 _SX, _SY, _Z, _INVW, _UW, _VW, _ZMW, _ZM = range(8)
 _BIG = 1 << 30
 
+# Grid cells whose triangles' planes the tiled preps build in one batch of
+# frames (each frame's whole grid at once): 16 frames at d10, one from d12.
+PREP_CELLS = 1 << 24
+
 # Window area cap, as the JAX package sizes it for the TPU's VMEM (kept so the
 # two packages pick the same configs; whether the card should lift it is
 # queued in ROADMAP.md).
@@ -77,7 +81,8 @@ def _project_attribute_grid(mvp, vertex_grid, uv_grid, width, height):
 
 def _padded_grid(mvp, vertex_grid, uv_grid, width, height,
                  config: RasterConfig):
-    """The projected attribute grid, edge-padded to the config's cells."""
+    """The projected attribute grid, edge-padded to the config's cells ->
+    (8, R, C), or (8, F, R, C) for F MVPs (F, 4, 4)."""
     n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
     cells_r, cells_c = _padded_cells(n_r, n_c, config)
     vg = _project_attribute_grid(mvp, vertex_grid, uv_grid, width, height)
@@ -267,17 +272,22 @@ def _triangle(g, diag):
     return (a, b, c) if diag == 0 else (c, b, d)
 
 
-def _cell_planes_grid(vg, config: RasterConfig):
+def _cell_planes_grid(vg, config: RasterConfig, out=None, cell0=0):
     """Planes of every triangle of a padded grid, in the grid route's
     formula (``common.triangle_planes``; the JAX ``_tile_planes``).
 
-    :param vg: (8, R, C) padded channel-major grid.
-    :return: ``(cov, attr)``, each (12, 2 * cells + 1) float32: column
+    :param vg: (8, R, C) padded channel-major grid, or (8, F, R, C) for F
+        frames at once.
+    :param out: the (cov, attr) tables to write, else new ones.
+    :param cell0: the first cell (row-major) of ``vg``'s cells in ``out``,
+        when ``vg`` holds a slab of the grid's cell rows.
+    :return: ``(cov, attr)``, each (12, 2 * cells + 1) float32, or (F, 12,
+        2 * cells + 1): column
         ``2 * cell + diag`` (cells row-major), the last column the never-
         covered plane. cov rows are [A, B, C] of λ0, λ1, λ2, z; attr rows of
         u/w, v/w, 1/w, zm/w.
     """
-    covs, attrs = [], []
+    cov_t, attr_t = tiled.new_tables(vg) if out is None else out
     never = torch.zeros((4, 3), dtype=_F32, device=vg.device)
     never[:3, 2] = -1.0
     never[3, 2] = common.FAR_SENTINEL
@@ -305,15 +315,11 @@ def _cell_planes_grid(vg, config: RasterConfig):
                 rows.append(common.fma(
                     corner[a][2], lam[2],
                     common.fma(corner[a][1], lam[1], corner[a][0] * lam[0])))
-        covs.append(coeffs.reshape(coeffs.shape[:-2] + (12,)).permute(2, 0, 1)
-                    .reshape(12, -1))
-        attrs.append(torch.stack(rows).reshape(12, -1))
-    cov = torch.stack(covs, dim=-1).reshape(12, -1)    # column 2*cell + diag
-    attr = torch.stack(attrs, dim=-1).reshape(12, -1)
-    cov = torch.cat([cov, never.reshape(12, 1)], dim=1)
-    attr = torch.cat([attr, torch.zeros((12, 1), dtype=_F32,
-                                        device=vg.device)], dim=1)
-    return cov, attr
+        tiled.write_planes(cov_t, diag, coeffs.reshape(
+            coeffs.shape[:-2] + (12,)).movedim(-1, 0), cell0)
+        tiled.write_planes(attr_t, diag, torch.stack(rows), cell0)
+    tiled.write_padding(cov_t, attr_t, never.reshape(12))
+    return cov_t, attr_t
 
 
 def _grid_chunks(config: RasterConfig):
@@ -335,39 +341,83 @@ def _grid_rel(config: RasterConfig, cells_c: int, device):
     return rel.reshape(nch, tc)
 
 
+def prep_batches(frames: int, n_r: int, n_c: int, config: RasterConfig):
+    """How the tiled preps build a group's planes, within
+    :data:`PREP_CELLS` cells at once -> ``[(frames, [rows, ...]), ...]``:
+    slices of frames, each built in slabs of whole cell rows (as many frames
+    as hold PREP_CELLS cells in one slab each, or one frame in slabs of
+    PREP_CELLS cells)."""
+    cells_r, cells_c = _padded_cells(n_r, n_c, config)
+    if cells_r * cells_c <= PREP_CELLS:
+        step = PREP_CELLS // (cells_r * cells_c)
+        return [(slice(s, min(s + step, frames)), [slice(0, cells_r)])
+                for s in range(0, frames, step)]
+    rows = max(1, PREP_CELLS // cells_c)
+    slabs = [slice(r, min(r + rows, cells_r))
+             for r in range(0, cells_r, rows)]
+    return [(slice(f, f + 1), slabs) for f in range(frames)]
+
+
+def cell_planes_of(planes_fn, vgs, config: RasterConfig, tables, slabs):
+    """Run a route's plane builder (``planes_fn(vg, config, out, cell0)``)
+    over a frame batch's padded grids ``vgs`` (8, F, R, C) slab by slab of
+    cell rows, into ``tables`` (F, 12, N)."""
+    cells_c = vgs.shape[-1] - 1
+    for rows in slabs:
+        planes_fn(vgs[..., rows.start:rows.stop + 1, :], config, tables,
+                  rows.start * cells_c)
+
+
 def _grid_group(mvps, vertex_grid, uv_grid, width, height,
                 config: RasterConfig):
-    """Planes and windows of a frame group on the grid route ->
-    ``(cov, attr, px0, py0, jlo, jhi)`` with the (frame, tile) axes merged,
-    every anchor's chunks one after the other per tile."""
-    ntiles = -(-height // config.tile_h) * -(-width // config.tile_w)
+    """Plane tables and windows of a frame group on the grid route ->
+    ``(cov, attr, origin, rel, px0, py0, jlo, jhi)`` with the (frame, tile)
+    axes merged: the frames' (F, 12, N) tables and each tile's row-anchored
+    windows, every anchor's chunks one after the other per tile (see
+    ``tiled.raster_pairs``). The planes of several frames are built at once
+    (:func:`prep_batches`)."""
+    ntr = -(-height // config.tile_h)
+    ntc = -(-width // config.tile_w)
+    tables, origins = None, []
+    for batch, slabs in prep_batches(len(mvps), vertex_grid.shape[0],
+                                     vertex_grid.shape[1], config):
+        vgs = _padded_grid(mvps[batch], vertex_grid, uv_grid, width, height,
+                           config)
+        if tables is None:
+            tables = tiled.new_tables(vgs, len(mvps))
+        cell_planes_of(_cell_planes_grid, vgs, config,
+                       (tables[0][batch], tables[1][batch]), slabs)
+        for f in range(batch.start, batch.stop):
+            vg = vgs[:, f - batch.start]
+            wr, wc, _ = _tile_windows(vg[_SX], vg[_SY], config, width,
+                                      height, ntr, ntc)
+            origin = 2 * (wr.long() * (vg.shape[2] - 1) + wc.long()[:, None])
+            origins.append(origin.reshape(-1) + f * tables[0][f].numel())
+    rel = _grid_rel(config, vgs.shape[-1] - 1, vgs.device).to(_I32)
+    n = len(mvps) * ntr * ntc
+    dev = vgs.device
+    px0, py0 = tiled.tile_origins(config, width, height, dev)
+    jlo = torch.zeros((n,), dtype=_I32, device=dev)
+    jhi = torch.full((n,), config.row_anchors * rel.shape[0], dtype=_I32,
+                     device=dev)
+    return tables + (torch.cat(origins), rel, px0.repeat(len(mvps)),
+                     py0.repeat(len(mvps)), jlo, jhi)
 
-    def frame_part(f):
-        vg = _padded_grid(mvps[f], vertex_grid, uv_grid, width, height,
-                          config)
-        cells_c = vg.shape[2] - 1
-        wr, wc, _ = _tile_windows(vg[_SX], vg[_SY], config, width, height,
-                                  -(-height // config.tile_h),
-                                  -(-width // config.tile_w))
-        origin = 2 * (wr.long() * cells_c + wc.long()[:, None])  # (T, A)
-        return _cell_planes_grid(vg, config) + (
-            origin.reshape(-1), _grid_rel(config, cells_c, vg.device))
 
-    cov, attr = tiled.gather_frames(frame_part, len(mvps))
-    n = len(mvps) * ntiles
-    cov = cov.reshape((n, -1) + cov.shape[2:])
-    attr = attr.reshape((n, -1) + attr.shape[2:])
-    px0, py0 = tiled.tile_origins(config, width, height, cov.device)
-    jlo = torch.zeros((n,), dtype=_I32, device=cov.device)
-    jhi = torch.full((n,), cov.shape[1], dtype=_I32, device=cov.device)
-    return cov, attr, px0.repeat(len(mvps)), py0.repeat(len(mvps)), jlo, jhi
+def table_bytes_per_frame(n_r: int, n_c: int, config: RasterConfig) -> int:
+    """Device bytes of one frame's plane tables (cov + attr) on either
+    tiled route, for an (n_r, n_c) vertex grid."""
+    cells_r, cells_c = _padded_cells(n_r, n_c, config)
+    return 2 * 12 * (2 * cells_r * cells_c + 1) * 4
 
 
-def grid_coeff_bytes_per_frame(width, height, config: RasterConfig) -> int:
-    """Device bytes of one frame's grid-route plane tables (cov + attr)."""
-    ntiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
-    tc, nch = _grid_chunks(config)
-    return 2 * config.row_anchors * ntiles * nch * 12 * tc * 4
+def frame_group(n_r: int, n_c: int, config: RasterConfig,
+                frame_batch: int = 16) -> int:
+    """Frames per prep and pair kernel launch on either tiled route:
+    ``frame_batch``, clamped so a group's plane tables stay within
+    ``tiled.COEFF_BUDGET``."""
+    per_frame = table_bytes_per_frame(n_r, n_c, config)
+    return max(1, min(frame_batch, tiled.COEFF_BUDGET // per_frame))
 
 
 def render_frames_grid(mvps, vertex_grid, uv_grid, texture, width, height,
@@ -393,8 +443,8 @@ def render_frames_grid(mvps, vertex_grid, uv_grid, texture, width, height,
     texture = torch.as_tensor(texture, device=dev)
     mvps = torch.as_tensor(mvps, dtype=_F32, device=dev).reshape(-1, 4, 4)
     T = mvps.shape[0]
-    per_frame = max(grid_coeff_bytes_per_frame(width, height, config), 1)
-    fb = max(1, min(frame_batch, tiled.COEFF_BUDGET // per_frame, T))
+    fb = frame_group(vertex_grid.shape[0], vertex_grid.shape[1], config,
+                     frame_batch)
     ntiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
     out = torch.empty((T, height, width, 4), dtype=torch.uint8, device=dev)
     for s in range(0, T, fb):

@@ -5,14 +5,16 @@ per frame group:
 
 1. **prep** (plain PyTorch): project the grid, bin the tiles
    (``raster_grid._tile_bounds``), build the λ/z and attribute planes of every
-   triangle of the grid once, and gather each tile's candidate window into
-   ``(chunks, 12, TC)`` chunk planes in the JAX route's triangle order
-   (chunk, diagonal, cell), with the ``never`` padding planes and the exact
-   active chunk range ``[jlo, jhi)`` per tile and anchor pass.
+   triangle of the grid once into the frame's plane tables, and place each
+   tile's candidate window in them: its table origin, the route's relative
+   columns in the JAX route's triangle order (chunk, diagonal, cell; -1 for
+   the ``never`` padding) and the exact active chunk range ``[jlo, jhi)``
+   per tile and anchor pass.
 2. **pairs** (``tiled.raster_pairs``): per 8x128 tile, every active chunk's
    planes at every pixel: coverage, min z with lowest-id ties, the winner's
    attributes, strict-``<`` chunk merge. One launch of the hand-written CUDA
-   kernel (``csrc/pair.cu``) per frame group.
+   kernel (``csrc/pair.cu``) per frame group, reading the windows' chunks
+   straight from the tables.
 3. **shade** (plain PyTorch): merge the two anchor passes by depth (strict
    ``<``), assemble the tiles and shade (``tiled.shade_tiles``).
 
@@ -30,13 +32,15 @@ from .common import RasterConfig
 _F32 = torch.float32
 _I32 = torch.int32
 _FAR = float(common.FAR_SENTINEL)
+# The padding plane's cov column: λ0 C = -1 (never covered), z C = FAR.
+_NEVER_COV = (0.0, 0.0, -1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, _FAR)
 
 
 # ---------------------------------------------------------------------------
 # Prep
 # ---------------------------------------------------------------------------
 
-def _cell_planes(vg, config: RasterConfig):
+def _cell_planes(vg, config: RasterConfig, out=None, cell0=0):
     """Planes of every triangle of a padded grid, in the Pallas route's
     formula (the JAX ``_prep_tile_planes``, computed once for the whole grid
     instead of once per window: a plane depends only on its cell).
@@ -45,13 +49,18 @@ def _cell_planes(vg, config: RasterConfig):
     ``a*b - c*d`` is ``fma(a, b, -(c*d))`` and ``a*b + c*d + e*f`` is
     ``fma(e, f, fma(a, b, c*d))``.
 
-    :param vg: (8, R, C) padded channel-major grid.
-    :return: ``(cov, attr)``, each (12, 2 * cells + 1) float32: column
+    :param vg: (8, R, C) padded channel-major grid, or (8, F, R, C) for F
+        frames at once.
+    :param out: the (cov, attr) tables to write, else new ones.
+    :param cell0: the first cell (row-major) of ``vg``'s cells in ``out``,
+        when ``vg`` holds a slab of the grid's cell rows.
+    :return: ``(cov, attr)``, each (12, 2 * cells + 1) float32, or (F, 12,
+        2 * cells + 1): column
         ``2 * cell + diag`` (cells row-major), the last column the padding
         plane (λ0 C = -1, z C = FAR for cov; zeros for attr).
     """
     sx, sy, z, invw, uw, vw, zmw, zm = vg
-    covs, attrs = [], []
+    cov, attr = tiled.new_tables(vg) if out is None else out
     for diag in (0, 1):
         def tri(g):
             return raster_grid._triangle(g, diag)
@@ -90,14 +99,9 @@ def _cell_planes(vg, config: RasterConfig):
         cov_rows = list(lam[0]) + list(lam[1]) + list(lam[2]) + zp
         attr_rows = (combine(*tri(uw)) + combine(*tri(vw))
                      + combine(*tri(invw)) + combine(*tri(zmw)))
-        covs.append(torch.stack(cov_rows).reshape(12, -1))
-        attrs.append(torch.stack(attr_rows).reshape(12, -1))
-    never = torch.zeros((12, 1), dtype=_F32, device=vg.device)
-    never_cov = never.clone()
-    never_cov[2] = -1.0
-    never_cov[11] = _FAR
-    cov = torch.cat([torch.stack(covs, dim=-1).reshape(12, -1), never_cov], 1)
-    attr = torch.cat([torch.stack(attrs, dim=-1).reshape(12, -1), never], 1)
+        tiled.write_planes(cov, diag, torch.stack(cov_rows), cell0)
+        tiled.write_planes(attr, diag, torch.stack(attr_rows), cell0)
+    tiled.write_padding(cov, attr, _NEVER_COV)
     return cov, attr
 
 
@@ -154,9 +158,15 @@ def _active_range(sy, wr, wc, py0, row_floor, height, config: RasterConfig):
     return jlo, jhi
 
 
+def _window_origins(vg, wr, wc):
+    """(n,) int64 table column of each window's first cell (diagonal 0)."""
+    return 2 * (wr.long() * (vg.shape[2] - 1) + wc.long())
+
+
 def _prep_tile_planes(vg, wr, wc, px0, py0, row_floor, height,
                       config: RasterConfig):
-    """Chunk planes of a batch of tile windows on one padded grid.
+    """Chunk planes of a batch of tile windows on one padded grid (the JAX
+    function's layout, gathered from the grid's plane tables).
 
     :param vg: (8, R, C) padded channel-major projected grid.
     :param wr, wc, px0, py0, row_floor: (n,) int window origins (cells),
@@ -166,23 +176,12 @@ def _prep_tile_planes(vg, wr, wc, px0, py0, row_floor, height,
         and (n,) int32 active chunk ranges.
     """
     del px0  # column skipping is not worthwhile at full-width chunks
-    part, jlo, jhi = _frame_windows(vg, wr, wc, py0,
-                                    torch.as_tensor(row_floor,
-                                                    device=vg.device),
-                                    height, config)
-    return tiled.gather_windows(part) + (jlo, jhi)
-
-
-def _frame_windows(vg, wr, wc, py0, row_floor, height, config: RasterConfig):
-    """One frame's plane tables and window columns (a ``gather_windows``
-    part) and the windows' active chunk ranges."""
-    cells_c = vg.shape[2] - 1
-    origin = 2 * (wr.long() * cells_c + wc.long())
+    row_floor = torch.as_tensor(row_floor, device=vg.device)
     part = _cell_planes(vg, config) + (
-        origin, _window_rel(config, cells_c, vg.device))
-    jlo, jhi = _active_range(vg[raster_grid._SY], wr, wc, py0, row_floor,
-                             height, config)
-    return part, jlo, jhi
+        _window_origins(vg, wr, wc),
+        _window_rel(config, vg.shape[2] - 1, vg.device))
+    return tiled.gather_windows(part) + _active_range(
+        vg[raster_grid._SY], wr, wc, py0, row_floor, height, config)
 
 
 def _tile_passes(vg, config: RasterConfig, width, height):
@@ -218,49 +217,46 @@ def _tile_passes(vg, config: RasterConfig, width, height):
 def _prep_stage_batched(mvps, vertex_grid, uv_grid, width, height,
                         config: RasterConfig):
     """Prep of a frame group, (frame, anchor pass, tile) axes merged ->
-    ``(cov, attr, px0, py0, jlo, jhi)``. Each frame's planes are built over
-    its whole grid once and its windows gathered from them in one indexing
-    operation per table, before the next frame's planes are built."""
+    ``(cov, attr, origin, rel, px0, py0, jlo, jhi)``: the frames' (F, 12, N)
+    plane tables, each frame's built over its whole grid once (several
+    frames at once: ``raster_grid.prep_batches``), and the windows in them
+    (see ``tiled.raster_pairs``)."""
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     uv_grid = torch.as_tensor(uv_grid, dtype=_F32, device=vertex_grid.device)
     mvps = torch.as_tensor(mvps, dtype=_F32,
                            device=vertex_grid.device).reshape(-1, 4, 4)
-    ints = []
-
-    def frame_part(f):
-        vg = raster_grid._padded_grid(mvps[f], vertex_grid, uv_grid, width,
-                                      height, config)
-        wr, wc, px0, py0, floors = _tile_passes(vg, config, width, height)
-        part, jlo, jhi = _frame_windows(vg, wr, wc, py0, floors, height,
-                                        config)
-        ints.append((px0, py0, jlo, jhi))
-        return part
-
-    return tiled.gather_frames(frame_part, len(mvps)) + tuple(
-        torch.cat(a) for a in zip(*ints))
+    tables, ints = None, []
+    for batch, slabs in raster_grid.prep_batches(
+            len(mvps), vertex_grid.shape[0], vertex_grid.shape[1], config):
+        vgs = raster_grid._padded_grid(mvps[batch], vertex_grid, uv_grid,
+                                       width, height, config)
+        if tables is None:
+            tables = tiled.new_tables(vgs, len(mvps))
+        raster_grid.cell_planes_of(_cell_planes, vgs, config,
+                                   (tables[0][batch], tables[1][batch]),
+                                   slabs)
+        for f in range(batch.start, batch.stop):
+            vg = vgs[:, f - batch.start]
+            wr, wc, px0, py0, floors = _tile_passes(vg, config, width, height)
+            jlo, jhi = _active_range(vg[raster_grid._SY], wr, wc, py0,
+                                     floors, height, config)
+            ints.append((_window_origins(vg, wr, wc)
+                         + f * tables[0][f].numel(), px0, py0, jlo, jhi))
+    rel = _window_rel(config, vgs.shape[-1] - 1, vgs.device).to(_I32)
+    origin, px0, py0, jlo, jhi = (torch.cat(a) for a in zip(*ints))
+    return tables + (origin, rel, px0, py0, jlo, jhi)
 
 
 def _prep_stage_impl(mvp, vertex_grid, uv_grid, width, height,
                      config: RasterConfig):
-    """Prep of one frame -> ``(cov, attr, px0, py0, jlo, jhi)`` over the
-    (anchor pass, tile) axis."""
-    return _prep_stage_batched(torch.as_tensor(mvp, dtype=_F32)[None],
-                               vertex_grid, uv_grid, width, height, config)
-
-
-def _coeff_bytes_per_frame(width, height, config: RasterConfig) -> int:
-    """Device bytes of one frame's plane tables (cov + attr)."""
-    ntiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
-    tc, nc = _chunks(config)
-    return 2 * config.row_anchors * ntiles * 2 * nc * 12 * tc * 4
-
-
-def frame_group(width, height, config: RasterConfig,
-                frame_batch: int = 16) -> int:
-    """Frames per prep and pair kernel launch: ``frame_batch``, clamped so a
-    group's plane tables stay within ``tiled.COEFF_BUDGET``."""
-    per_frame = max(_coeff_bytes_per_frame(width, height, config), 1)
-    return max(1, min(frame_batch, tiled.COEFF_BUDGET // per_frame))
+    """Prep of one frame in the JAX function's layout -> ``(cov, attr, px0,
+    py0, jlo, jhi)``: the windows' (n, 2 * chunks, 12, TC) chunk planes
+    over the (anchor pass, tile) axis."""
+    cov, attr, origin, rel, px0, py0, jlo, jhi = _prep_stage_batched(
+        torch.as_tensor(mvp, dtype=_F32)[None], vertex_grid, uv_grid, width,
+        height, config)
+    return tiled.gather_tables(cov, attr, origin, rel, px0.shape[0]) + (
+        px0, py0, jlo, jhi)
 
 
 def _shade_stage_batched(tiles, texture, width, height, config: RasterConfig,
@@ -290,10 +286,10 @@ def render_frames_pallas(mvps, vertex_grid, uv_grid, texture, width, height,
     device of ``vertex_grid``.
 
     Frames go in groups of ``frame_batch``, clamped so a group's plane tables
-    stay within ``tiled.COEFF_BUDGET``: one prep, one pair kernel launch and
-    one shade per group. (The JAX function pads the last group to keep one
-    compiled shape; eager PyTorch needs no padding, and no pixel depends on
-    the grouping.)
+    stay within ``tiled.COEFF_BUDGET`` (``raster_grid.frame_group``): one
+    prep, one pair kernel launch and one shade per group. (The JAX function
+    pads the last group to keep one compiled shape; eager PyTorch needs no
+    padding, and no pixel depends on the grouping.)
     """
     _check_anchors(config)
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
@@ -301,13 +297,13 @@ def render_frames_pallas(mvps, vertex_grid, uv_grid, texture, width, height,
     texture = torch.as_tensor(texture, device=dev)
     mvps = torch.as_tensor(mvps, dtype=_F32, device=dev).reshape(-1, 4, 4)
     T = mvps.shape[0]
-    fb = frame_group(width, height, config, frame_batch)
+    fb = raster_grid.frame_group(vertex_grid.shape[0], vertex_grid.shape[1],
+                                 config, frame_batch)
     out = torch.empty((T, height, width, 4), dtype=torch.uint8, device=dev)
     for s in range(0, T, fb):
-        cov, attr, px0, py0, jlo, jhi = _prep_stage_batched(
-            mvps[s:s + fb], vertex_grid, uv_grid, width, height, config)
-        tiles = tiled.raster_pairs(cov, attr, px0, py0, jlo, jhi, height,
-                                   config)
+        planes = _prep_stage_batched(mvps[s:s + fb], vertex_grid, uv_grid,
+                                     width, height, config)
+        tiles = tiled.raster_pairs(*planes, height, config)
         out[s:s + fb] = _shade_stage_batched(tiles, texture, width, height,
                                              config, mode)
     return out

@@ -1,14 +1,19 @@
-"""What the tiled rasteriser's two routes share: the window gather, the pixel
-x triangle pass and the tile shade.
+"""What the tiled rasteriser's two routes share: the plane tables and their
+windows, the pixel x triangle pass and the tile shade.
 
 Both routes (``raster_pallas`` and ``raster_grid``) turn a frame group into
-``(chunks, 12, TC)`` chunk planes per (tile, anchor pass) with
-:func:`gather_frames`, run :func:`raster_pairs` on them and shade the merged
-tile rows with :func:`shade_tiles`. :func:`raster_pairs` is one hand-written
-CUDA kernel (``csrc/pair.cu``, the TPU ``raster_pallas._pair_kernel``, built
-with nvcc on first use) with a plain PyTorch twin,
-:func:`raster_pairs_plain`; the wrapper runs the twin for CPU tensors and
-launches the kernel, or raises, for CUDA tensors.
+its frames' plane tables, ``(F, 12, N)`` for cov and attr, and per tile the
+table columns of its windows: ``origin`` (int64, the frame's offset
+``f * 12 * N`` folded in) and the route's ``rel`` (chunks, TC) relative
+columns (-1 = padding). :func:`raster_pairs` runs the pixel x triangle pass
+on them and :func:`shade_tiles` shades the merged tile rows.
+:func:`raster_pairs` is one hand-written CUDA kernel (``csrc/pair.cu``, the
+TPU ``raster_pallas._pair_kernel``, built with nvcc on first use) that reads
+each window's chunks straight from the tables, with a plain PyTorch twin,
+:func:`raster_pairs_plain`, on ``(chunks, 12, TC)`` window copies
+(:func:`gather_tables`, the TPU kernel's own input layout); the wrapper
+runs gather and twin for CPU tensors and launches the kernel, or raises,
+for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -25,10 +30,11 @@ _F32 = torch.float32
 _I32 = torch.int32
 _FAR = float(common.FAR_SENTINEL)
 
-# Device bytes a frame group's plane tables (cov + attr) may take: a fifth of
-# the H100's 80 GB, leaving room for the gather index, the tile outputs and
-# the shade. The group size changes no pixel.
-COEFF_BUDGET = 16 << 30
+# Device bytes a frame group's plane tables (cov + attr) may take: 32 GiB of
+# the H100's 80 GB, two frames' tables at d13 (~12 GiB each) beside one
+# frame's plane build, the tile rows and the shade; at d10 (0.2 GB a frame)
+# it never binds. The group size changes no pixel.
+COEFF_BUDGET = 32 << 30
 
 
 # ---------------------------------------------------------------------------
@@ -43,6 +49,32 @@ def tile_origins(config: RasterConfig, width, height, device):
            ).repeat_interleave(ntc)
     px0 = (torch.arange(ntc, dtype=_I32, device=device) * tw).repeat(ntr)
     return px0, py0
+
+
+def new_tables(vg, frames=None):
+    """Empty ``(cov, attr)`` plane tables of a padded grid ``vg`` (8, ..., R,
+    C): each (12, N) float32, or (frames, 12, N), N = 2 * cells + 1."""
+    n = 2 * (vg.shape[-2] - 1) * (vg.shape[-1] - 1) + 1
+    shape = (12, n) if frames is None else (frames, 12, n)
+    return tuple(torch.empty(shape, dtype=_F32, device=vg.device)
+                 for _ in range(2))
+
+
+def write_planes(table, diag, planes, cell0=0):
+    """One diagonal class's (12, ..., rows, cells_c) planes of the cells
+    from ``cell0`` on (row-major) into the (..., 12, N) table's columns
+    ``2 * cell + diag``."""
+    cells = planes.shape[-2] * planes.shape[-1]
+    lead = table.shape[:-2]
+    table[..., 2 * cell0 + diag:2 * (cell0 + cells):2] = planes.reshape(
+        (12,) + lead + (cells,)).movedim(0, -2)
+
+
+def write_padding(cov, attr, never_cov):
+    """The tables' last column: the padding plane (``never_cov``, 12
+    floats; attr zeros)."""
+    cov[..., -1] = torch.as_tensor(never_cov, dtype=_F32, device=cov.device)
+    attr[..., -1] = 0.0
 
 
 def _window_index(origin, never, rel):
@@ -85,10 +117,9 @@ def gather_frames(frame_part, frames: int):
     """Chunk planes of a frame group's windows, frame after frame ->
     ``(cov, attr)``, each (frames * n, chunks, 12, TC).
 
-    ``frame_part(f)`` builds frame ``f``'s :func:`gather_windows` part; its
-    windows are gathered into the group's tables before the next frame's
-    part is built, so one frame's full-grid plane tables are resident at a
-    time beside the group's windows (which :data:`COEFF_BUDGET` bounds)."""
+    ``frame_part(f)`` gives frame ``f``'s :func:`gather_windows` part; its
+    windows are gathered into the output before the next frame's part is
+    taken."""
     cov, attr = gather_windows(frame_part(0))
     if frames == 1:
         return cov, attr
@@ -100,6 +131,26 @@ def gather_frames(frame_part, frames: int):
         gather_windows(frame_part(f), (out[0][f * n:(f + 1) * n],
                                        out[1][f * n:(f + 1) * n]))
     return out
+
+
+def gather_tables(cov, attr, origin, rel, ntiles: int):
+    """Window copies of a frame group's tables, the plain twin's input ->
+    ``(cov, attr)``, each (ntiles, wpt * chunks, 12, TC): tile ``t``'s
+    windows ``origin[t * wpt:(t + 1) * wpt]`` one after another.
+
+    :param cov, attr: (F, 12, N) plane tables (each frame's last column the
+        padding plane).
+    :param origin: (ntiles * wpt,) int64 table columns of the windows' first
+        cells with the frame offsets ``f * 12 * N`` folded in; frame-major,
+        the same count for every frame.
+    :param rel: (chunks, TC) relative columns, -1 = padding.
+    """
+    frames, _, n = cov.shape
+    per = origin.numel() // max(frames, 1)
+    win = gather_frames(lambda f: (cov[f], attr[f],
+                                   origin[f * per:(f + 1) * per] - f * 12 * n,
+                                   rel.long()), frames)
+    return tuple(w.reshape((ntiles, -1) + w.shape[2:]) for w in win)
 
 
 def active_pairs(jlo, jhi, tc: int, tile_pixels: int) -> int:
@@ -220,55 +271,75 @@ class _PairParams(ctypes.Structure):
     """Mirror of ``struct PairParams`` in csrc/pair.cu (field order and types
     must match)."""
 
-    _fields_ = [(name, ctypes.c_int) for name in (
-        "ntiles", "nchunks", "tc", "tile_h", "tile_w", "height")]
+    _fields_ = [("nstride", ctypes.c_longlong)] + [
+        (name, ctypes.c_int) for name in (
+            "ntiles", "wpt", "nch", "tc", "tile_h", "tile_w", "height")]
 
 
 def _load_lib():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_kernels()))
-            vp = ctypes.c_void_p
-            lib.pair_raster.restype = ctypes.c_int
-            lib.pair_raster.argtypes = [vp] * 7 + [
-                ctypes.POINTER(_PairParams), vp]
-            lib.pair_error_string.restype = ctypes.c_char_p
-            lib.pair_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build_kernels())))
     return _lib
 
 
-def raster_pairs(cov_planes, attr_planes, px0, py0, jlo, jhi, height,
+def bind(lib):
+    """Set the C entry points' argument and result types on a loaded
+    ``pair.cu`` library -> the library."""
+    vp = ctypes.c_void_p
+    lib.pair_raster.restype = ctypes.c_int
+    lib.pair_raster.argtypes = [vp] * 9 + [ctypes.POINTER(_PairParams), vp]
+    lib.pair_threads.restype = ctypes.c_int
+    lib.pair_threads.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.pair_error_string.restype = ctypes.c_char_p
+    lib.pair_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def raster_pairs(cov, attr, origin, rel, px0, py0, jlo, jhi, height,
                  config: RasterConfig):
     """Stream the pixel x triangle work of every tile -> (ntiles, P, 8)
     float32 rows (u, v, z_model, coverage, best z, min-λ, 0, 0).
 
-    CPU tensors: :func:`raster_pairs_plain`; CUDA tensors: the ``pairs``
-    kernel (one launch), or an exception.
+    :param cov, attr: (F, 12, N) float32 plane tables of the frame group.
+    :param origin: (ntiles * wpt,) int64 window origins (see
+        :func:`gather_tables`); tile ``t``'s chunk ``j`` is window
+        ``j // chunks``, relative row ``j % chunks``.
+    :param rel: (chunks, TC) int32 relative columns, -1 = padding.
+    :param px0, py0, jlo, jhi: (ntiles,) int32 tile origins and active
+        chunk ranges.
+
+    CPU tensors: :func:`gather_tables` and :func:`raster_pairs_plain`; CUDA
+    tensors: the ``pairs`` kernel (one launch), or an exception.
     """
-    if cuda_build.on_cpu(cov_planes, attr_planes, px0, py0, jlo, jhi):
-        return raster_pairs_plain(cov_planes, attr_planes, px0, py0, jlo, jhi,
-                                  height, config)
-    n, nch, _, tc = cov_planes.shape
-    P = config.tile_h * config.tile_w
-    if P > 1024:
-        raise ValueError(f"the pair kernel takes tiles of at most 1024 "
-                         f"pixels, got {config.tile_h}x{config.tile_w}")
-    cuda_build.check_cuda(
-        {"cov_planes": cov_planes, "attr_planes": attr_planes, "px0": px0,
-         "py0": py0, "jlo": jlo, "jhi": jhi},
-        {"cov_planes": _F32, "attr_planes": _F32, "px0": _I32, "py0": _I32,
-         "jlo": _I32, "jhi": _I32},
-        {"cov_planes": (n, nch, 12, tc), "attr_planes": (n, nch, 12, tc),
-         "px0": (n,), "py0": (n,), "jlo": (n,), "jhi": (n,)})
-    out = torch.empty((n, P, 8), dtype=_F32, device=cov_planes.device)
-    params = _PairParams(ntiles=n, nchunks=nch, tc=tc, tile_h=config.tile_h,
-                         tile_w=config.tile_w, height=height)
+    tensors = {"cov": cov, "attr": attr, "origin": origin, "rel": rel,
+               "px0": px0, "py0": py0, "jlo": jlo, "jhi": jhi}
+    n = px0.shape[0]
+    if cuda_build.on_cpu(*tensors.values()):
+        return raster_pairs_plain(*gather_tables(cov, attr, origin, rel, n),
+                                  px0, py0, jlo, jhi, height, config)
     lib = _load_lib()
-    stream = torch.cuda.current_stream(cov_planes.device).cuda_stream
-    ptrs = [t.data_ptr() for t in (cov_planes, attr_planes, px0, py0, jlo,
-                                    jhi, out)]
+    if lib.pair_threads(config.tile_h, config.tile_w) == 0:
+        raise ValueError(f"the pair kernel takes tiles of at most 1024 "
+                         f"pixels, 8 rows of 128-column segments, got "
+                         f"{config.tile_h}x{config.tile_w}")
+    P = config.tile_h * config.tile_w
+    nch, tc = rel.shape
+    wpt = origin.shape[0] // max(n, 1)
+    cuda_build.check_cuda(
+        tensors,
+        {"cov": _F32, "attr": _F32, "origin": torch.int64, "rel": _I32,
+         "px0": _I32, "py0": _I32, "jlo": _I32, "jhi": _I32},
+        {"cov": (cov.shape[0], 12, cov.shape[2]), "attr": cov.shape,
+         "origin": (n * wpt,), "rel": (nch, tc), "px0": (n,), "py0": (n,),
+         "jlo": (n,), "jhi": (n,)})
+    out = torch.empty((n, P, 8), dtype=_F32, device=cov.device)
+    params = _PairParams(nstride=cov.shape[2], ntiles=n, wpt=max(wpt, 1),
+                         nch=nch, tc=tc, tile_h=config.tile_h,
+                         tile_w=config.tile_w, height=height)
+    stream = torch.cuda.current_stream(cov.device).cuda_stream
+    ptrs = [t.data_ptr() for t in tensors.values()] + [out.data_ptr()]
     err = lib.pair_raster(*[ctypes.c_void_p(p) for p in ptrs],
                           ctypes.byref(params), ctypes.c_void_p(stream))
     if err != 0:

@@ -350,10 +350,12 @@ def test_grid_exact_matches_jax_and_refuses_straddlers(texture):
 def test_pair_wrapper_uses_the_twin_only_on_the_cpu():
     vg, uvg, mvp = scene_arrays(density=3, size=(24, 32), seed=2)
     cfg = tcfg(CFG)
+    tables = trp._prep_stage_batched(T(mvp)[None], T(vg), T(uvg), 64, 48,
+                                     cfg)
     planes = trp._prep_stage_impl(T(mvp), T(vg), T(uvg), 64, 48, cfg)
     ttl.reset_launch_counts()
     np.testing.assert_array_equal(
-        ttl.raster_pairs(*planes, 48, cfg).numpy(),
+        ttl.raster_pairs(*tables, 48, cfg).numpy(),
         ttl.raster_pairs_plain(*planes, 48, cfg).numpy())
     assert ttl.LAUNCHES == {"pairs": 0}
     assert ttl.active_pairs(planes[4], planes[5], 64, 256) > 0

@@ -11,7 +11,9 @@ Scene: the card-only scan tests' seeded depth map (``test_torch_gpu``),
 meshed at density 7 (a 129x129 grid) and rendered at 128x96, frontal and 4
 degrees yawed, on both routes' plane orders (Pallas: chunk, diagonal, cell
 with active ranges; grid: cell, diagonal, every anchor's chunks in one list)
-at 1 and 2 row anchors. Bars, with their reasons: the kernel computes the
+at 1 and 2 row anchors: the kernel on the frame group's plane tables, the
+twin on the windows gathered out of them (``tiled.gather_tables``). Bars,
+with their reasons: the kernel computes the
 same float32 operations in the same order as ``raster_pairs_plain`` (the
 kernel file is built with ``--fmad=false``, and the one contracted
 multiply-add is ``fmaf`` there and an exact emulation in the twin), so the
@@ -68,7 +70,9 @@ def test_pair_kernel_equals_plain_twin(cuda, route, anchors):
     ttl.reset_launch_counts()
     rows = ttl.raster_pairs(*planes, H, cfg)
     assert ttl.LAUNCHES == {"pairs": 1}
-    plain = ttl.raster_pairs_plain(*planes, H, cfg)
+    plain = ttl.raster_pairs_plain(
+        *ttl.gather_tables(*planes[:4], planes[4].shape[0]), *planes[4:], H,
+        cfg)
     torch.cuda.synchronize()
     assert torch.equal(rows, plain)
     assert rows[..., 3].mean() > 0.3
@@ -107,11 +111,14 @@ def test_render_clip_on_the_card_matches_the_cpu(cuda, impl):
 def test_pair_wrapper_rejects_bad_inputs(cuda):
     _, mvps, vg, uvg, cfg = _inputs(cuda, 1)
     planes = list(trp._prep_stage_batched(mvps[:1], vg, uvg, W, H, cfg))
-    with pytest.raises(ValueError, match="cov_planes must be"):
+    with pytest.raises(ValueError, match="cov must be"):
         ttl.raster_pairs(planes[0].double(), *planes[1:], H, cfg)
+    with pytest.raises(ValueError, match="origin must be"):   # 64-bit
+        ttl.raster_pairs(*planes[:2], planes[2].int(), *planes[3:], H, cfg)
     with pytest.raises(ValueError, match="mixed devices"):
         ttl.raster_pairs(planes[0].cpu(), *planes[1:], H, cfg)
     with pytest.raises(ValueError, match="1024 pixels"):
         ttl.raster_pairs(*planes, H, dataclasses.replace(cfg, tile_h=16))
-    empty = [p[:0] for p in planes]
+    empty = planes[:2] + [planes[2][:0], planes[3]] + [p[:0]
+                                                        for p in planes[4:]]
     assert ttl.raster_pairs(*empty, H, cfg).shape == (0, 1024, 8)
