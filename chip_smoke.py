@@ -103,7 +103,9 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    ``gp5_roll``, onehot_dot ``gp1_onehot``, transpose ``spm_p1_transpose``
    (it and its library call ``x.t().contiguous()`` timed from launches
    captured in CUDA graphs of two sizes, without the host's launch cost or
-   the graph's), march_top2 ``spm_p2_march``.
+   the graph's), march_top2 ``spm_p2_march``; the ``probes`` line also
+   gives each of those cases' slope over its stated bound (``*_x``: the
+   runner's ``x_stated``).
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
@@ -1293,7 +1295,9 @@ def probes_phase(dev):
                        "library_ms": timed[name].get("library_ms")}
     phase("probes", cases=len(timed), launches=json.dumps(launches),
           **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in out.items()},
-          **{f"{k}_bound_ms": f"{v['bound_ms']:.6f}" for k, v in out.items()})
+          **{f"{k}_bound_ms": f"{v['bound_ms']:.6f}" for k, v in out.items()},
+          **{f"{k}_x": f"{timed[n].get('x_stated', float('nan')):.3f}"
+             for k, n in PROBE_KERNELS.items()})
     return out, launches
 
 

@@ -8,16 +8,16 @@
 //
 //   gather_accum  every gather probe (and scan_probe_march P3, P3b, P3c):
 //                 one thread per output element sums, over the trips and the
-//                 unrolled index sets, a value gathered from a table staged
-//                 in shared memory (the card's counterpart of VMEM). Index
-//                 forms: static, & mask, (+ trip) & mask (the probes'
-//                 (idx + i) % n for a power-of-two n and idx + i >= 0, where
-//                 the two are equal), the two-subtable clip and the &255
-//                 two-subtable select; along rows (lane), along columns
-//                 (sublane) or over the flat table; f32, u32 (cast to f32),
-//                 i32 (wrapping sum) or the low 16 bits of the f32 bits;
-//                 1 or 8 tables, 1 or 4 rotating accumulators; the baselines
-//                 without a gather (multiply-add, index convert).
+//                 index sets, a value gathered from a table staged in shared
+//                 memory (the card's counterpart of VMEM). Index forms:
+//                 static, & mask, (+ trip) & mask (the probes' (idx + i) % n
+//                 for a power-of-two n and idx + i >= 0, where the two are
+//                 equal), the two-subtable clip and the &255 two-subtable
+//                 select; along rows (lane), along columns (sublane) or over
+//                 the flat table; f32, u32 (cast to f32), i32 (wrapping sum)
+//                 or the low 16 bits of the f32 bits; 1 or 8 tables, 1 or 4
+//                 rotating accumulators; the baselines without a gather
+//                 (multiply-add, index convert).
 //   roll_accum    gather_probe5 build_roll: out[s, l] += t[s, (l - sh) mod C],
 //                 jnp.roll's convention, with a per-set traced shift.
 //   onehot_dot    gather_probe build_onehot_mxu: the one-hot contraction done
@@ -28,23 +28,42 @@
 //                 test over the row's C crossing columns and the top 2 keys
 //                 with their lowest column index, summed over the trips.
 //
-// Layout: the TPU probes held whole (S, 128) tiles in vector registers; here
-// a block of threads covers a tile of output elements and stages the slice of
-// the table its threads read: a lane gather reads its thread's table row, so
-// a block stages its rows (bs rows x all columns, of every table); a sublane
-// gather reads its thread's column, so a block stages all rows of its bl
-// columns; the flat gather stages the whole table. Where there is more than
-// one index set (the unrolled probes), the block stages its sets too; one
-// set stays in a register. The host (probes/__init__.py::gather_geometry)
-// picks bs and bl.
-//
 // What bounds them on an H100: a gather is one shared-memory word per lookup
 // per thread, 32 words a clock per SM when the 32 lanes of a warp hit 32
-// banks; a random lane index into a table row hits random banks (a sublane
-// gather with 32-column slices hits bank = lane, none), so the probes
-// measure the conflicts too. The baselines and onehot_dot are bound by FP32
-// at 128 multiply-adds a clock per SM, the transpose by device memory. The
-// kernels are the simple exact form; nothing here is tuned.
+// banks; the baselines and onehot_dot are bound by FP32 at 128 multiply-adds
+// a clock per SM, the march's sweep by its two FP32 operations a column
+// (and, in practice, by the compares and selects around them), the
+// transpose by device memory.
+//
+// gather_accum's design: the block's slice of the table is staged in shared
+// memory, each word as 2^lg_stripe copies side by side (ProbeParams), so
+// that lane j of a warp reads copy j % 2^lg_stripe in bank j: with 32
+// copies (a lane gather's row of up to 512 words, 64 KB) no index can
+// conflict; a sublane gather's staged [rows][32 columns] is the same
+// layout, the copies being its 32 columns. Where 32 copies do not fit in 64
+// KB (8 tables: 16 copies; the flat table: one) the conflicts the indices
+// give are counted by the host (probes.wavefronts). A word's byte offset is
+// ((x << lg_stripe) | copy) * 4, so a (idx + i) & mask index is one add and
+// one AND-OR a lookup, a static or & mask index none: each thread's index
+// sets sit in registers as offsets, loaded once. The trip loop runs in
+// stages of 16 lookups (16 trips of one set, 2 trips of 8, or 16 of a
+// trip's 32 or 64 sets): a stage's 16 shared loads are issued before its
+// adds, and each accumulator's adds stay one chain in the probe's order.
+// The loads are volatile: a static index reads the same words every trip,
+// and the load must happen every trip. An int-to-float conversion (u32,
+// bitcast, the convert baseline) is one instruction, I2FP or I2F.U16,
+// neither of which binds at the shared-memory rate.
+//
+// march_top2's design: each thread sweeps its pixel for 4 trips at once (4
+// independent chains), the row's curve and depth read 4 columns at a time as
+// float4 broadcasts (curve padded by its first 4 columns: column C - 1
+// pairs with column 0), and the top 2 kept with predicates and selects, no
+// branch per column. The compares and selects run on the ALU pipe, at half
+// the FP32 rate: nine a column would bind the sweep at ~9x its FP32 bound.
+// So a group of 4 columns computes its 16 products first (a subtract, a
+// multiply and one accumulated compare each) and runs the selects only when
+// a warp vote finds a product <= 0 in it: a pixel's row crosses it in few
+// of the 64 groups.
 //
 // Numerics: built with --fmad=false; every sum is taken in the probe's order
 // (sequential f32 adds per accumulator, a0 + a1 + a2 + a3 at the end), so
@@ -63,12 +82,13 @@
 // element strides idx_us, idx_ss, idx_ls (idx_ls = 0 broadcasts a column).
 // gather_accum, roll_accum and march_top2 compute `copies` identical
 // outputs, one per blockIdx.z, to fill more of the card than the probe's one
-// tile does.
+// tile does. lg_stripe: gather_accum's staged word stride, log2 (see above).
 struct ProbeParams {
   int form, axis, dtype, naccs;
   int S, L, ntab, R, C, unroll;
   int idx_us, idx_ss, idx_ls;
   int mask, trips, bs, bl, copies;
+  int lg_stripe;
 };
 
 namespace {
@@ -78,6 +98,8 @@ enum Axis { kLane, kSublane, kFlat };
 enum Dtype { kF32, kU32, kI32, kBitcast };
 
 constexpr float kBig = 3.0e38f;
+// gather_accum's lookups a stage (see above).
+constexpr int kStage = 16;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
   return x < lo ? lo : (x > hi ? hi : x);
@@ -87,113 +109,203 @@ __device__ __forceinline__ float as_f32(uint32_t w) {
   return __uint_as_float(w);
 }
 
-// Words of shared memory gather_accum_kernel stages: the table slice, then
-// the block's index sets when there is more than one.
+// Words of the table gather_accum_kernel stages: the block's slice (a lane
+// gather's row of every table, a sublane gather's bl columns of every row,
+// the flat table), each word 2^lg_stripe times.
 __host__ __device__ inline int gather_smem_words(const ProbeParams& p) {
-  int nt = 0;
-  if (p.form != kFma && p.form != kConvert) {
-    if (p.axis == kLane) nt = p.ntab * p.bs * p.C;
-    else if (p.axis == kSublane) nt = p.R * p.bl;
-    else nt = p.ntab * p.R * p.C;
-  }
-  return nt + (p.unroll > 1 ? p.unroll * p.bs * p.bl : 0);
+  if (p.form == kFma || p.form == kConvert) return 0;
+  if (p.axis == kLane) return (p.ntab * p.C) << p.lg_stripe;
+  if (p.axis == kSublane) return p.R * p.bl;
+  return p.ntab * p.R * p.C;
 }
 
 }  // namespace
 
-extern __shared__ uint32_t probe_smem[];
+extern __shared__ __align__(16) uint32_t probe_smem[];
 
-template <int FORM, int AXIS, int DT, int NACC>
-__global__ void __launch_bounds__(1024)
+namespace {
+
+// The word at byte offset b of the staged table, read every time it is
+// asked for (see above).
+__device__ __forceinline__ uint32_t lds(uint32_t b) {
+  return *(const volatile uint32_t*)((const volatile char*)probe_smem + b);
+}
+
+// A thread's view of the staged table and of its index sets.
+struct GatherCtx {
+  uint32_t copy;    // its copy's byte offset in a staged word's stripe
+  uint32_t mask_s;  // the index mask as a byte offset
+  int sh;           // log2 of a staged word's stride in bytes
+  int mask;
+  float t;          // the multiply-add baseline's table value
+};
+
+// Set u's word at trip i (sets' values a: a byte offset for the static and
+// & mask forms, idx << sh for (+ trip) & mask and &255, idx for the clip,
+// the value for the baselines). The baselines return what their add takes:
+// the set's value, or (idx + i) & mask.
+template <int FORM>
+__device__ __forceinline__ uint32_t fetch(uint32_t a, int i,
+                                          const GatherCtx& g) {
+  if constexpr (FORM == kStatic || FORM == kMask) {
+    return lds(a);
+  } else if constexpr (FORM == kAddMask) {
+    return lds(((a + ((uint32_t)i << g.sh)) & g.mask_s) | g.copy);
+  } else if constexpr (FORM == kClip2) {
+    const int x = clampi((int)a + i, 0, 255);
+    const uint32_t w0 = lds(((uint32_t)clampi(x, 0, 127) << g.sh) | g.copy);
+    const uint32_t w1 =
+        lds(((uint32_t)(128 + clampi(x - 128, 0, 127)) << g.sh) | g.copy);
+    return x < 128 ? w0 : w1;
+  } else if constexpr (FORM == kAnd2) {
+    const uint32_t v = a + ((uint32_t)i << g.sh);
+    const uint32_t b = (v & (127u << g.sh)) | g.copy;
+    const uint32_t w0 = lds(b), w1 = lds(b + (128u << g.sh));
+    return (v & (128u << g.sh)) == 0 ? w0 : w1;
+  } else if constexpr (FORM == kConvert) {
+    return (uint32_t)(((int)a + i) & g.mask);
+  } else {
+    return a;
+  }
+}
+
+template <int DT>
+using AccT = typename std::conditional<DT == kI32, uint32_t, float>::type;
+
+// acc plus what word w adds.
+template <int FORM, int DT>
+__device__ __forceinline__ AccT<DT> add_word(AccT<DT> acc, uint32_t w,
+                                             const GatherCtx& g) {
+  if constexpr (FORM == kFma) return fmaf(g.t, as_f32(w), acc);
+  else if constexpr (FORM == kConvert) return acc + (float)(int)w;
+  else if constexpr (DT == kF32) return acc + as_f32(w);
+  else if constexpr (DT == kU32) return acc + (float)w;
+  else if constexpr (DT == kI32) return acc + w;
+  else return acc + (float)(w & 0xFFFFu);
+}
+
+// Loop iteration `it`, stage `ch`: lookup j is trip it * TU + j / U, set
+// j % U (U < kStage), or trip it, set ch * kStage + j.
+template <int FORM, int U, int TU>
+__device__ __forceinline__ void fetch_stage(uint32_t (&v)[kStage],
+                                            const uint32_t (&a)[U], int it,
+                                            int ch, const GatherCtx& g) {
+#pragma unroll
+  for (int j = 0; j < kStage; ++j) {
+    if constexpr (U < kStage)
+      v[j] = fetch<FORM>(a[j % U], it * TU + j / U, g);
+    else
+      v[j] = fetch<FORM>(a[ch * kStage + j], it, g);
+  }
+}
+
+template <int FORM, int DT, int NACC, int U>
+__device__ __forceinline__ void add_stage(AccT<DT> (&acc)[NACC],
+                                          const uint32_t (&v)[kStage], int ch,
+                                          const GatherCtx& g) {
+#pragma unroll
+  for (int j = 0; j < kStage; ++j) {
+    const int k = (U < kStage ? j % U : ch * kStage + j) % NACC;
+    acc[k] = add_word<FORM, DT>(acc[k], v[j], g);
+  }
+}
+
+}  // namespace
+
+template <int FORM, int AXIS, int DT, int NACC, int U>
+__global__ void __launch_bounds__(256)
 gather_accum_kernel(const uint32_t* __restrict__ tab,
                     const uint32_t* __restrict__ idx,
                     uint32_t* __restrict__ out, ProbeParams p) {
   constexpr bool kGather = FORM != kFma && FORM != kConvert;
+  static_assert(U < kStage ? kStage % U == 0 : U % kStage == 0,
+                "a stage holds whole trips or whole sixteenths of a trip");
+  constexpr int TU = U < kStage ? kStage / U : 1;  // trips an iteration
+  constexpr int NCH = U < kStage ? 1 : U / kStage;  // stages an iteration
   const int tl = threadIdx.x, ts = threadIdx.y;
   const int nthr = blockDim.x * blockDim.y, tid = ts * blockDim.x + tl;
   const int s0 = blockIdx.y * p.bs, l0 = blockIdx.x * p.bl;
   const int s = s0 + ts, l = l0 + tl;
+  // The forms that offset every lookup take the stripe as a constant (32
+  // copies; one for the flat table), so that their shifts are immediates.
+  constexpr bool kPerLookup = FORM == kAddMask || FORM == kClip2 ||
+                              FORM == kAnd2;
+  const int lg = kPerLookup ? (AXIS == kFlat ? 0 : 5) : p.lg_stripe;
+  const int rep = 1 << lg;
 
-  uint32_t* st = probe_smem;
-  int nt = 0;
   if constexpr (kGather && AXIS == kLane) {
-    nt = p.ntab * p.bs * p.C;
-    for (int k = tid; k < nt; k += nthr) {
-      const int c = k % p.C, r = (k / p.C) % p.bs, t = k / (p.C * p.bs);
-      st[k] = tab[((size_t)t * p.R + s0 + r) * p.C + c];
-    }
-  } else if constexpr (kGather && AXIS == kSublane) {
-    nt = p.R * p.bl;
-    for (int k = tid; k < nt; k += nthr)
-      st[k] = tab[(size_t)(k / p.bl) * p.C + l0 + k % p.bl];
-  } else if constexpr (kGather) {
-    nt = p.ntab * p.R * p.C;
-    for (int k = tid; k < nt; k += nthr) st[k] = tab[k];
-  }
-  uint32_t* si = st + nt;
-  const bool staged = p.unroll > 1;
-  if (staged) {
-    const int ni = p.unroll * p.bs * p.bl;
-    for (int k = tid; k < ni; k += nthr) {
-      const int c = k % p.bl, r = (k / p.bl) % p.bs, u = k / (p.bl * p.bs);
-      si[k] = idx[(size_t)u * p.idx_us + (size_t)(s0 + r) * p.idx_ss +
-                  (size_t)(l0 + c) * p.idx_ls];
-    }
-  }
-  __syncthreads();
-  const uint32_t own =
-      staged ? 0u : idx[(size_t)s * p.idx_ss + (size_t)l * p.idx_ls];
-  // The multiply-add baseline's table value is its own element.
-  const float t = FORM == kFma ? as_f32(tab[(size_t)s * p.C + l]) : 0.f;
-  const uint32_t* row = st + ts * p.C;  // a lane gather's row, table 0
-  const int tstride = p.bs * p.C, tmask = p.ntab - 1;
-  const int iset = p.bs * p.bl, ioff = ts * p.bl + tl;
-
-  using Acc = typename std::conditional<DT == kI32, uint32_t, float>::type;
-  Acc acc[NACC];
-#pragma unroll
-  for (int k = 0; k < NACC; ++k) acc[k] = 0;
-
-  for (int i = 0; i < p.trips; ++i) {
-    for (int u = 0; u < p.unroll; u += NACC) {
-#pragma unroll
-      for (int k = 0; k < NACC; ++k) {
-        const int uu = u + k;
-        const uint32_t raw = staged ? si[uu * iset + ioff] : own;
-        const int r = (int)raw;
-        if constexpr (FORM == kFma) {
-          acc[k] = fmaf(t, as_f32(raw), acc[k]);
-        } else if constexpr (FORM == kConvert) {
-          acc[k] = acc[k] + (float)((r + i) & p.mask);
-        } else {
-          uint32_t w;
-          if constexpr (FORM == kClip2) {
-            const int x = clampi(r + i, 0, 255);
-            const uint32_t w0 = row[clampi(x, 0, 127)];
-            const uint32_t w1 = row[128 + clampi(x - 128, 0, 127)];
-            w = x < 128 ? w0 : w1;
-          } else if constexpr (FORM == kAnd2) {
-            const int x = (r + i) & 255, lo = x & 127;
-            const uint32_t w0 = row[lo], w1 = row[128 + lo];
-            w = x < 128 ? w0 : w1;
-          } else {
-            int ix = r;
-            if constexpr (FORM == kMask) ix = r & p.mask;
-            if constexpr (FORM == kAddMask) ix = (r + i) & p.mask;
-            if constexpr (AXIS == kLane) w = row[(uu & tmask) * tstride + ix];
-            else if constexpr (AXIS == kSublane) w = st[ix * p.bl + tl];
-            else w = st[ix];
-          }
-          if constexpr (DT == kF32) acc[k] = acc[k] + as_f32(w);
-          if constexpr (DT == kU32) acc[k] = acc[k] + (float)w;
-          if constexpr (DT == kI32) acc[k] = acc[k] + w;
-          if constexpr (DT == kBitcast)
-            acc[k] = acc[k] + (float)(w & 0xFFFFu);
-        }
+    // Row s0 of every table, word (t, w) at ((t * C + w) << lg) + copy.
+    const int nw = p.ntab * p.C;
+    if (rep >= 4) {
+      uint4* st4 = (uint4*)probe_smem;
+      for (int k = tid; k < (nw << lg) / 4; k += nthr) {
+        const int tw = (4 * k) >> lg, t = tw / p.C, w = tw % p.C;
+        const uint32_t v = tab[((size_t)t * p.R + s0) * p.C + w];
+        st4[k] = make_uint4(v, v, v, v);
+      }
+    } else {
+      for (int k = tid; k < (nw << lg); k += nthr) {
+        const int tw = k >> lg, t = tw / p.C, w = tw % p.C;
+        probe_smem[k] = tab[((size_t)t * p.R + s0) * p.C + w];
       }
     }
+  } else if constexpr (kGather && AXIS == kSublane) {
+    // Every row of the block's bl columns, word (r, c) at r * bl + c.
+    for (int k = tid; k < p.R * p.bl; k += nthr)
+      probe_smem[k] = tab[(size_t)(k / p.bl) * p.C + l0 + k % p.bl];
+  } else if constexpr (kGather) {
+    for (int k = tid; k < p.ntab * p.R * p.C; k += nthr)
+      probe_smem[k] = tab[k];
   }
-  Acc r = acc[0];
+
+  GatherCtx g;
+  g.sh = lg + 2;
+  g.copy = (uint32_t)(tl & (rep - 1)) << 2;
+  g.mask = p.mask;
+  g.mask_s = (uint32_t)p.mask << g.sh;
+  g.t = FORM == kFma ? as_f32(tab[(size_t)s * p.C + l]) : 0.f;
+  // The sets as fetch() takes them, in registers for the whole loop.
+  uint32_t a[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const uint32_t raw = idx[(size_t)u * p.idx_us + (size_t)s * p.idx_ss +
+                             (size_t)l * p.idx_ls];
+    const uint32_t tb = (uint32_t)((u & (p.ntab - 1)) * p.C) << g.sh;
+    if constexpr (FORM == kStatic)
+      a[u] = tb + ((raw << g.sh) | g.copy);
+    else if constexpr (FORM == kMask)
+      a[u] = tb + (((raw & (uint32_t)p.mask) << g.sh) | g.copy);
+    else if constexpr (FORM == kAddMask || FORM == kAnd2)
+      a[u] = raw << g.sh;
+    else
+      a[u] = raw;
+  }
+  __syncthreads();
+
+  AccT<DT> acc[NACC];
+#pragma unroll
+  for (int k = 0; k < NACC; ++k) acc[k] = 0;
+  // Whole iterations, a stage's loads issued before its adds (the compiler
+  // overlaps a stage's adds with the next stage's loads). The baselines
+  // load nothing: they run the plain loop below.
+  const int nit = kGather ? p.trips / TU : 0;
+  for (int it = 0; it < nit; ++it) {
+#pragma unroll
+    for (int ch = 0; ch < NCH; ++ch) {
+      uint32_t v[kStage];
+      fetch_stage<FORM, U, TU>(v, a, it, ch, g);
+      add_stage<FORM, DT, NACC, U>(acc, v, ch, g);
+    }
+  }
+  // The trips left over (U < kStage only), or all of a baseline's.
+  for (int i = nit * TU; i < p.trips; ++i) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const uint32_t w = fetch<FORM>(a[u], i, g);
+      acc[u % NACC] = add_word<FORM, DT>(acc[u % NACC], w, g);
+    }
+  }
+  AccT<DT> r = acc[0];
 #pragma unroll
   for (int k = 1; k < NACC; ++k) r = r + acc[k];
   out += (size_t)blockIdx.z * p.S * p.L;
@@ -296,56 +408,121 @@ transpose_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-// Block y, thread l: per trip q = qx[0, l] + 0.001f * t, f[c] = curve[y, c] -
-// q, hit[c] = f[c] * f[(c + 1) mod C] <= 0 and zc[y, c] < BIG, key = hit ?
-// zc : BIG; (m1, o1) the least key and its lowest column, (m2, o2) the least
-// of the rest; no hit gives column 0 and BIG, as the probe's masked minima
-// do. out rows 4y .. 4y + 3 sum o1, m1, o2, m2 over the trips.
+namespace {
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *(const float4*)p;
+}
+
+// A float of the staged row, read where it is asked for (see march_trips).
+__device__ __forceinline__ float ldsv(const float* p) {
+  return *(const volatile float*)p;
+}
+
+// K trips t0 .. t0 + K - 1 of one pixel's sweep over a row staged as sc
+// (the curve, padded by its first 4 columns) and sz (the depths), each trip
+// its own chain; each trip's (o1, m1, o2, m2) is added to a0 .. a3 in trip
+// order. hit = f[c] * f[c + 1] <= 0 in float32; a hit's key z takes first
+// place if z < m1 and second if z < m2 (strict: an equal key keeps the lower
+// column; z < m2 <= BIG also holds the probe's z < BIG); no hit leaves
+// column 0 with BIG. A group of 4 columns first takes its products and one
+// accumulated compare each; only where a lane of the warp has a product <=
+// 0 (a vote) does it run the top-2 update, branchless, recomputing the
+// group's products from a second, volatile read of the row: the compiler
+// then has no per-column hit to compute ahead of the vote (it did, and kept
+// the 16 bits in a register at 3 instructions each).
+template <int K>
+__device__ __forceinline__ void march_trips(const float* sc, const float* sz,
+                                            int C, float q0, int t0,
+                                            float (&a)[4]) {
+  float q[K], prev[K], m1[K], m2[K];
+  int o1[K], o2[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    q[k] = q0 + 0.001f * (float)(t0 + k);
+    prev[k] = sc[0] - q[k];
+    m1[k] = m2[k] = kBig;
+    o1[k] = o2[k] = 0;
+  }
+  float4 cur = ld4(sc);
+  for (int c = 0; c < C; c += 4) {
+    const float4 nxt = ld4(sc + c + 4);
+    const float cv[4] = {cur.y, cur.z, cur.w, nxt.x};  // curve[c + 1 ..]
+    float fc[K];  // f[c] of each chain
+    bool none = true;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      fc[k] = prev[k];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float f = cv[j] - q[k];
+        none = none & !(prev[k] * f <= 0.f);  // & not &&: no branch
+        prev[k] = f;
+      }
+    }
+    if (__any_sync(0xffffffffu, !none)) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float cn = ldsv(sc + c + j + 1), z = ldsv(sz + c + j);
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const float f = cn - q[k];
+          const bool hit = fc[k] * f <= 0.f;
+          const bool lt1 = hit & (z < m1[k]);
+          const bool lt2 = hit & (z < m2[k]);
+          m2[k] = lt1 ? m1[k] : (lt2 ? z : m2[k]);
+          o2[k] = lt1 ? o1[k] : (lt2 ? c + j : o2[k]);
+          m1[k] = lt1 ? z : m1[k];
+          o1[k] = lt1 ? c + j : o1[k];
+          fc[k] = f;
+        }
+      }
+    }
+    cur = nxt;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    a[0] = a[0] + (float)o1[k];
+    a[1] = a[1] + m1[k];
+    a[2] = a[2] + (float)o2[k];
+    a[3] = a[3] + m2[k];
+  }
+}
+
+}  // namespace
+
+// Trips in chains of kMarchChains (then one at a time).
+constexpr int kMarchChains = 4;
+
+// Block y (of copy z), thread l: per trip q = qx[0, l] + 0.001f * t, f[c] =
+// curve[y, c] - q, hit[c] = f[c] * f[(c + 1) mod C] <= 0 and zc[y, c] <
+// BIG, key = hit ? zc : BIG; (m1, o1) the least key and its lowest column,
+// (m2, o2) the least of the rest; no hit gives column 0 and BIG, as the
+// probe's masked minima do. out rows 4y .. 4y + 3 sum o1, m1, o2, m2 over
+// the trips.
 __global__ void __launch_bounds__(1024)
 march_top2_kernel(const float* __restrict__ curve,
                   const float* __restrict__ zc, const float* __restrict__ qx,
                   float* __restrict__ out, ProbeParams p) {
   const int y = blockIdx.x, l = threadIdx.x, C = p.C;
-  float* sc = (float*)probe_smem;
-  float* sz = sc + C;
-  for (int k = l; k < C; k += blockDim.x) {
-    sc[k] = curve[(size_t)y * C + k];
-    sz[k] = zc[(size_t)y * C + k];
-  }
+  float* sc = (float*)probe_smem;  // C + 4: the curve, then columns 0 .. 3
+  float* sz = sc + C + 4;
+  for (int k = l; k < C + 4; k += blockDim.x)
+    sc[k] = curve[(size_t)y * C + (k < C ? k : k - C)];
+  for (int k = l; k < C; k += blockDim.x) sz[k] = zc[(size_t)y * C + k];
   __syncthreads();
   const float q0 = qx[l];
-  float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-  for (int t = 0; t < p.trips; ++t) {
-    const float q = q0 + 0.001f * (float)t;
-    const float f0 = sc[0] - q;
-    float prev = f0, m1 = kBig, m2 = kBig;
-    int o1 = -1, o2 = -1;
-    for (int c = 0; c < C; ++c) {
-      const float next = c + 1 < C ? sc[c + 1] - q : f0;
-      const float z = sz[c];
-      const float key = (prev * next <= 0.f && z < kBig) ? z : kBig;
-      if (key < m1) {
-        m2 = m1;
-        o2 = o1;
-        m1 = key;
-        o1 = c;
-      } else if (key < m2) {
-        m2 = key;
-        o2 = c;
-      }
-      prev = next;
-    }
-    a0 = a0 + (float)(o1 < 0 ? 0 : o1);
-    a1 = a1 + m1;
-    a2 = a2 + (float)(o2 < 0 ? 0 : o2);
-    a3 = a3 + m2;
-  }
+  float a[4] = {0.f, 0.f, 0.f, 0.f};
+  int t = 0;
+  for (; t + kMarchChains <= p.trips; t += kMarchChains)
+    march_trips<kMarchChains>(sc, sz, C, q0, t, a);
+  for (; t < p.trips; ++t) march_trips<1>(sc, sz, C, q0, t, a);
   const size_t L = p.L;
   out += (size_t)blockIdx.z * 4 * p.S * L;
-  out[(4 * y + 0) * L + l] = a0;
-  out[(4 * y + 1) * L + l] = a1;
-  out[(4 * y + 2) * L + l] = a2;
-  out[(4 * y + 3) * L + l] = a3;
+  out[(4 * y + 0) * L + l] = a[0];
+  out[(4 * y + 1) * L + l] = a[1];
+  out[(4 * y + 2) * L + l] = a[2];
+  out[(4 * y + 3) * L + l] = a[3];
 }
 
 namespace {
@@ -353,26 +530,48 @@ namespace {
 using GatherFn = void (*)(const uint32_t*, const uint32_t*, uint32_t*,
                           ProbeParams);
 
-// The instances the registered cases use.
+// The instances the registered cases use: (form, axis, dtype, accumulators,
+// index sets).
 GatherFn pick_gather(const ProbeParams& p) {
-#define PROBE_PICK(F, A, D, N)                                         \
-  if (p.form == F && p.axis == A && p.dtype == D && p.naccs == N)      \
-    return gather_accum_kernel<F, A, D, N>;
-  PROBE_PICK(kStatic, kLane, kF32, 1)
-  PROBE_PICK(kStatic, kLane, kU32, 1)
-  PROBE_PICK(kMask, kLane, kF32, 1)
-  PROBE_PICK(kMask, kLane, kI32, 1)
-  PROBE_PICK(kMask, kLane, kBitcast, 1)
-  PROBE_PICK(kAddMask, kLane, kF32, 1)
-  PROBE_PICK(kAddMask, kLane, kF32, 4)
-  PROBE_PICK(kAddMask, kSublane, kF32, 1)
-  PROBE_PICK(kAddMask, kFlat, kF32, 1)
-  PROBE_PICK(kClip2, kLane, kF32, 1)
-  PROBE_PICK(kAnd2, kLane, kF32, 1)
-  PROBE_PICK(kFma, kLane, kF32, 1)
-  PROBE_PICK(kConvert, kLane, kF32, 4)
+#define PROBE_PICK(F, A, D, N, U)                                       \
+  if (p.form == F && p.axis == A && p.dtype == D && p.naccs == N &&     \
+      p.unroll == U)                                                    \
+    return gather_accum_kernel<F, A, D, N, U>;
+  PROBE_PICK(kAddMask, kLane, kF32, 1, 1)
+  PROBE_PICK(kAddMask, kSublane, kF32, 1, 1)
+  PROBE_PICK(kAddMask, kFlat, kF32, 1, 1)
+  PROBE_PICK(kClip2, kLane, kF32, 1, 1)
+  PROBE_PICK(kAnd2, kLane, kF32, 1, 1)
+  PROBE_PICK(kStatic, kLane, kF32, 1, 8)
+  PROBE_PICK(kStatic, kLane, kU32, 1, 8)
+  PROBE_PICK(kMask, kLane, kF32, 1, 8)
+  PROBE_PICK(kFma, kLane, kF32, 1, 8)
+  PROBE_PICK(kStatic, kLane, kF32, 1, 64)
+  PROBE_PICK(kMask, kLane, kF32, 1, 64)
+  PROBE_PICK(kMask, kLane, kI32, 1, 64)
+  PROBE_PICK(kMask, kLane, kBitcast, 1, 64)
+  PROBE_PICK(kFma, kLane, kF32, 1, 64)
+  PROBE_PICK(kAddMask, kLane, kF32, 4, 32)
+  PROBE_PICK(kConvert, kLane, kF32, 4, 32)
 #undef PROBE_PICK
   return nullptr;
+}
+
+// A layout gather_accum_kernel cannot stage, or an index form it cannot
+// offset: a lane gather stages one output row, a sublane gather bl =
+// 2^lg_stripe columns, the flat gather one copy; only the static and & mask
+// forms hold a table's offset in the set, so only they take several tables
+// or a stripe other than 32 copies (one for the flat table).
+bool bad_layout(const ProbeParams* p) {
+  if (p->lg_stripe < 0 || p->lg_stripe > 5 || (p->ntab & (p->ntab - 1)) != 0)
+    return true;
+  if (p->form == kFma || p->form == kConvert) return false;
+  const bool fixed = p->form == kStatic || p->form == kMask;
+  if (!fixed && p->lg_stripe != (p->axis == kFlat ? 0 : 5)) return true;
+  if (p->ntab != 1 && !(p->axis == kLane && fixed)) return true;
+  if (p->axis == kLane) return p->bs != 1;
+  if (p->axis == kSublane) return p->bl != 1 << p->lg_stripe;
+  return p->lg_stripe != 0;
 }
 
 int set_smem(const void* fn, size_t bytes) {
@@ -398,8 +597,8 @@ const char* probe_error_string(int err) {
 int probe_gather_accum(const void* tab, const void* idx, void* out,
                        const ProbeParams* p, void* stream) {
   const GatherFn fn = pick_gather(*p);
-  if (fn == nullptr || bad_tiles(p) || p->unroll % p->naccs != 0 ||
-      (p->ntab & (p->ntab - 1)) != 0)
+  if (fn == nullptr || bad_tiles(p) || p->bs * p->bl > 256 ||
+      bad_layout(p))
     return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)gather_smem_words(*p) * 4;
   if (const int e = set_smem((const void*)fn, smem)) return e;
@@ -449,11 +648,12 @@ int probe_transpose(const void* x, void* out, const ProbeParams* p,
 
 int probe_march_top2(const void* curve, const void* zc, const void* qx,
                      void* out, const ProbeParams* p, void* stream) {
-  // p->S rows y, p->C columns, p->L pixels (one thread each).
-  if (p->S <= 0 || p->C <= 0 || p->L <= 0 || p->L > 1024 || p->trips < 0 ||
-      p->copies < 1 || p->copies > 65535)
+  // p->S rows y, p->C columns (a multiple of 4), p->L pixels (one thread
+  // each, whole warps: the sweep votes).
+  if (p->S <= 0 || p->C < 4 || p->C % 4 != 0 || p->L <= 0 || p->L > 1024 ||
+      p->L % 32 != 0 || p->trips < 0 || p->copies < 1 || p->copies > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)2 * p->C * 4;
+  const size_t smem = ((size_t)2 * p->C + 4) * 4;
   if (const int e = set_smem((const void*)march_top2_kernel, smem)) return e;
   const dim3 grid(p->S, 1, p->copies), block(p->L);
   march_top2_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(

@@ -68,9 +68,10 @@ def build(source: str, force: bool = False, src: Path | None = None,
 
 
 def _kernel_label(mangled: str) -> str:
-    """``name`` or ``name<b, ...>`` of an Itanium-mangled kernel with bool
-    template arguments (``_Z12march_kernelILb0ELb1ELb0EEv...`` ->
-    ``march_kernel<false, true, false>``), else the mangled name."""
+    """``name`` or ``name<a, ...>`` of an Itanium-mangled kernel with bool
+    or int template arguments (``_Z12march_kernelILb0ELb1ELb0EEv...`` ->
+    ``march_kernel<false, true, false>``, ``...ILi2ELi0EE...`` -> ``<2,
+    0>``), else the mangled name."""
     m = re.match(r"_Z(\d+)", mangled)
     if m is None:
         return mangled
@@ -78,8 +79,9 @@ def _kernel_label(mangled: str) -> str:
     name, rest = mangled[m.end():end], mangled[end:]
     if not rest.startswith("I"):
         return name
-    flags = re.findall(r"Lb([01])E", rest[:rest.find("EE") + 2])
-    return f"{name}<{', '.join(('false', 'true')[int(f)] for f in flags)}>"
+    args = [("false", "true")[int(v)] if t == "b" else v for t, v in
+            re.findall(r"L([bi])(\d+)E", rest[:rest.find("EE") + 2])]
+    return f"{name}<{', '.join(args)}>"
 
 
 def ptxas_usage(lib: Path) -> dict:
@@ -106,6 +108,75 @@ def ptxas_usage(lib: Path) -> dict:
             sm = re.search(r"(\d+) bytes smem", line)
             current["smem"] = int(sm.group(1)) if sm else 0
     return usage
+
+
+def cuobjdump() -> str:
+    """The cuobjdump beside :func:`nvcc`, else the one on ``PATH``."""
+    path = Path(nvcc()).parent / "cuobjdump"
+    return str(path) if path.exists() else "cuobjdump"
+
+
+_SASS_FN = re.compile(r"Function : (\S+)")
+_SASS_OP = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def parse_sass(text: str) -> dict:
+    """cuobjdump's SASS listing -> ``{label: [(address, opcode,
+    operands)]}`` per kernel, labelled as :func:`ptxas_usage` labels them
+    (a branch's operand is its target address)."""
+    kernels, current = {}, None
+    for line in text.splitlines():
+        m = _SASS_FN.search(line)
+        if m:
+            current = kernels.setdefault(_kernel_label(m.group(1)), [])
+            continue
+        m = _SASS_OP.search(line)
+        if m and current is not None:
+            current.append((int(m.group(1), 16), m.group(2),
+                            m.group(3).strip()))
+    return kernels
+
+
+def sass_loops(instructions) -> list:
+    """The innermost loops of one kernel's SASS (a branch back to an earlier
+    address, with no such loop inside): ``[(start, end, ops, guarded)]``,
+    ``ops`` a Counter of the loop's base opcodes (NOPs left out) and
+    ``guarded`` those of its longest stretch a forward branch inside it can
+    skip."""
+    from collections import Counter
+
+    def target(op, rest):
+        m = re.search(r"0x([0-9a-f]+)", rest)
+        return int(m.group(1), 16) if op.split(".")[0] == "BRA" and m else None
+
+    def count(lo, hi):
+        return Counter(o.split(".")[0] for a, o, _ in instructions
+                       if lo <= a <= hi and not o.startswith("NOP"))
+
+    spans = [(t, a) for a, o, r in instructions
+             if (t := target(o, r)) is not None and t < a]
+    loops = []
+    for start, end in spans:
+        if any(start <= s0 and e0 < end or start < s0 and e0 <= end
+               for s0, e0 in spans):
+            continue
+        skips = [(a, t) for a, o, r in instructions
+                 if start <= a < end and (t := target(o, r)) is not None
+                 and a < t <= end]
+        guarded = Counter()
+        if skips:
+            a, t = max(skips, key=lambda at: at[1] - at[0])
+            guarded = count(a + 1, t - 1)
+        loops.append((start, end, count(start, end), guarded))
+    return loops
+
+
+def sass(lib: Path) -> dict:
+    """:func:`parse_sass` of ``cuobjdump -sass`` of a built library."""
+    out = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                         capture_output=True, text=True, check=True).stdout
+    return parse_sass(out)
 
 
 def on_cpu(*tensors) -> bool:

@@ -255,6 +255,75 @@ def sms_used(case: Case, n_sms: int = 132, copies: int = 1) -> int:
     return min(geometry(case)[2] * copies, n_sms)
 
 
+# The most shared memory a gather_accum block stages: 64 KB leaves room for
+# three blocks on an SM.
+STAGE_BYTES = 64 * 1024
+
+
+def stripe(case: Case) -> int:
+    """log2 of the word stride of gather_accum's staged table (ProbeParams
+    ``lg_stripe``): a lane gather stages its row of every table with each
+    word as that many copies side by side, the most (up to 32) that fit in
+    :data:`STAGE_BYTES`, so that lane j reads copy j and, with 32, no two
+    lanes share a bank; a sublane gather's staged 32 columns are the same
+    layout (5); the flat table is staged once (0)."""
+    if case.axis == "sublane":
+        return 5
+    if case.axis == "flat":
+        return 0
+    lg = 5
+    while (case.ntab * case.table[-1] * 4) << lg > STAGE_BYTES:
+        lg -= 1
+    return lg
+
+
+def staged_words(case: Case, sets):
+    """The staged table's word each lookup of trip 0 reads, (sets, S, L)
+    int64 (the two-subtable forms: (2 * sets, S, L), the low then the high
+    word), under gather_accum's layout (:func:`stripe`). ``sets`` are the
+    case's index sets as the kernel reads them, (unroll, S, L)."""
+    lg = stripe(case)
+    x = np.asarray(sets, dtype=np.int64)
+    if case.form in ("mask", "addmask"):
+        x = x & case.mask
+    elif case.form == "clip2":
+        x = np.clip(x, 0, 255)
+        x = np.concatenate([np.clip(x, 0, 127),
+                            128 + np.clip(x - 128, 0, 127)])
+    elif case.form == "and2":
+        x = np.concatenate([x & 127, 128 + (x & 127)])
+    lane = np.arange(case.out[1])
+    if case.axis == "sublane":
+        return x * 32 + lane % 32
+    if case.axis == "flat":
+        return x
+    u = np.arange(len(x)) % case.unroll
+    tab = (u % case.ntab)[:, None, None] * case.table[-1]
+    return ((tab + x) << lg) + (lane & ((1 << lg) - 1))
+
+
+def wavefronts(case: Case, inputs: dict) -> float:
+    """Shared-memory wavefronts a warp's load takes on average under
+    gather_accum's layout for these inputs (1.0: no bank conflict): per
+    warp and load, the most distinct words any one of the 32 banks is asked
+    for. Counted at trip 0; a (idx + i) & mask index shifts every lane's
+    word by the same i, modulo the masked range, which keeps the count (the
+    two-subtable forms are conflict-free by their 32 copies at any trip)."""
+    if case.kernel != "gather_accum" or case.form in ("fma", "convert"):
+        return 1.0
+    s, l = case.out
+    idx = np.asarray(inputs["idx"])
+    sets = idx.reshape((-1,) + idx.shape[-2:])[:case.unroll, :s, :l]
+    words = np.broadcast_to(staged_words(case, sets), (
+        len(sets) * (2 if case.form in ("clip2", "and2") else 1), s, l))
+    warps = words.reshape(-1, 32)
+    total = 0
+    for w in warps:
+        w = np.unique(w)
+        total += np.bincount(w % 32, minlength=32).max()
+    return total / len(warps)
+
+
 def check_trips(case: Case) -> int:
     """Trips at which the kernel is held against its twin: the shorter
     timed count, cut so that the twin takes at most ~2,048 steps."""
@@ -394,7 +463,7 @@ class ProbeParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_int) for name in (
         "form", "axis", "dtype", "naccs", "S", "L", "ntab", "R", "C",
         "unroll", "idx_us", "idx_ss", "idx_ls", "mask", "trips", "bs", "bl",
-        "copies")]
+        "copies", "lg_stripe")]
 
 
 # Pointer arguments of each C entry point (then the params and the stream).

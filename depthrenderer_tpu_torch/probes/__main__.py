@@ -2,7 +2,7 @@
 
     python -m depthrenderer_tpu_torch.probes [--case NAME ...]
         [--device cuda|cpu] [--quick] [--json PATH] [--order random|lanes]
-        [--blocks N]
+        [--blocks N] [--beside PATH] [--sass]
 
 For every case (all of them by default) it prints one line: the kernel
 against its plain twin at the check trip count (bit for bit), then, on the
@@ -16,7 +16,11 @@ the blocks and SMs the launch occupies; and the bound: the shared-memory
 words a gather reads at 32 a clock per SM used, FP32 multiply-adds at 128
 a clock per SM used (onehot_dot, the baselines, march_top2's subtract and
 multiply per column), or the transpose's bytes over 3.35 TB/s, at the
-card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``).
+card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``). Beside
+that bound (``x_bound``), for a gather: the shared-memory bound counted in
+the bank wavefronts the case's indices give under gather_accum's layout
+(``wavefronts``, ``x_wave``; :func:`~depthrenderer_tpu_torch.probes.
+wavefronts`); ``x_stated`` is the time over the larger of the two.
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device;
 ``--device cpu`` runs every wrapper's plain twin (the check is then the
@@ -32,20 +36,40 @@ gather_accum, roll_accum and march_top2 compute as many identical outputs
 as take about N blocks (each output on its own blocks), so that the card
 holds more warps than the probe's one tile gives it (their latency hidden)
 and the time per lookup is a throughput.
+
+``--beside PATH`` builds another ``probes.cu`` (a parent's: ``git show
+HEAD~1:depthrenderer_tpu_torch/csrc/probes.cu > chip_tmp/parent.cu``) into
+``build/beside/`` beside the package's (one nvcc each, started together),
+holds its kernels against the twins too, and times every case with both
+libraries in turns (other, this, this, other): ``beside_*`` beside the
+package's numbers, each the mean of its two runs. ``--sass`` reads
+``cuobjdump -sass`` of the built library and prints, per case of
+gather_accum and march_top2, the instructions of its kernel's hot loop
+(the innermost loop with the most loads, or the sweep's column loop) per
+lookup (per column of one pixel and trip for march_top2), and the time over
+the issue floor they set (``x_issue``: 4 warp instructions a clock per SM;
+for the march, the instructions its vote cannot skip); where the loop
+converts with I2F (16 a clock per SM), the time over that unit's floor
+(``x_conv``), which sets ``x_stated`` where it binds.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 
+from .. import probes
 from . import (CASES, COPIED, ORDERS, bound_work, check_trips, geometry,
-               lookups_per_trip, make_inputs, run_case, sms_used, timing_trips)
+               lookups_per_trip, make_inputs, run_case, sms_used,
+               timing_trips, wavefronts)
 
 HBM_BYTES_PER_S = 3.35e12
 # Device-side sleep queued ahead of each timed run, per launch: longer than
@@ -173,37 +197,174 @@ def bound_ns_per_trip(case, clock_mhz, n_sms: int, copies: int = 1):
     return work / (rate * sms * clock_mhz * 1e6) * 1e9, by
 
 
-def measure_case(case, ins, reps: int, quick: bool, clock_mhz,
-                 n_sms: int, copies: int = 1) -> dict:
-    """The probe's slope timing on the card."""
+def bound_fields(case, ins, per_trip, clock_mhz, n_sms: int,
+                 copies: int = 1) -> dict:
+    """A trip's time (ns) against the case's bounds: the plain one
+    (``x_bound``), the shared-memory bound in wavefronts (``x_wave``) for a
+    gather, and ``x_stated`` against the larger."""
+    bound, by = bound_ns_per_trip(case, clock_mhz, n_sms, copies)
+    n = lookups_per_trip(case) * copies
+    res = {"ns_per_trip": per_trip, "ns_per_lookup": per_trip / n,
+           "lookups_per_s": n / per_trip * 1e9 if per_trip > 0 else None,
+           "bound_by": by}
+    if bound is None or bound <= 0:
+        return res
+    res.update(bound_ns_per_lookup=bound / n, x_bound=per_trip / bound)
+    stated = {by: bound}
+    if by == "smem":
+        waves = wavefronts(case, {k: v.cpu().numpy() for k, v in
+                                  ins.items()})
+        stated["smem_waves"] = bound * waves
+        res.update(wavefronts=waves, x_wave=per_trip / (bound * waves))
+    key = max(stated, key=stated.get)
+    res.update(stated_by=key, x_stated=per_trip / stated[key])
+    return res
+
+
+def slope_ns_per_trip(case, ins, reps: int, quick: bool, copies: int = 1):
+    """(trips, ms at each, ns a trip): the probe's slope timing."""
     t1, t2 = timing_trips(case, quick)
     ms1 = launch_ms(case, lambda: run_case(case, ins, t1, copies=copies),
                     reps)
-    bound, by = bound_ns_per_trip(case, clock_mhz, n_sms, copies)
-    n = lookups_per_trip(case) * copies
-    res = {"trips": [t1, t2], "ms": [ms1], "bound_by": by,
-           "blocks": geometry(case)[2] * copies,
+    if t2 <= t1:
+        return [t1, t2], [ms1], ms1 * 1e6
+    ms2 = device_ms(lambda: run_case(case, ins, t2, copies=copies), reps)
+    return [t1, t2], [ms1, ms2], (ms2 - ms1) * 1e6 / (t2 - t1)
+
+
+def measure_case(case, ins, reps: int, quick: bool, clock_mhz,
+                 n_sms: int, copies: int = 1) -> dict:
+    """The probe's slope timing on the card."""
+    trips, ms, per_trip = slope_ns_per_trip(case, ins, reps, quick, copies)
+    res = {"trips": trips, "ms": ms, "blocks": geometry(case)[2] * copies,
            "sms": sms_used(case, n_sms, copies)}
-    if t2 > t1:
-        ms2 = device_ms(lambda: run_case(case, ins, t2, copies=copies), reps)
-        per_trip = (ms2 - ms1) * 1e6 / (t2 - t1)
-        res["ms"].append(ms2)
-    else:
-        per_trip = ms1 * 1e6
-    res.update(ns_per_trip=per_trip, ns_per_lookup=per_trip / n,
-               lookups_per_s=n / per_trip * 1e9 if per_trip > 0 else None)
-    if bound is not None:
-        res.update(bound_ns_per_lookup=bound / n,
-                   x_bound=per_trip / bound if bound > 0 else None)
+    res.update(bound_fields(case, ins, per_trip, clock_mhz, n_sms, copies))
     if case.kernel == "transpose":
         # The library call in a graph too, and both as back-to-back
         # launches from the host (where the launch itself is timed).
         library = lambda: ins["x"].t().contiguous()  # noqa: E731
         res.update(
             library_ms=graph_ms(library, reps),
-            stream_ms=device_ms(lambda: run_case(case, ins, t1), reps),
+            stream_ms=device_ms(lambda: run_case(case, ins, trips[0]), reps),
             library_stream_ms=device_ms(library, reps))
     return res
+
+
+@contextlib.contextmanager
+def using(lib):
+    """Launch the probe kernels from ``lib`` (a bound library) inside."""
+    before = probes._lib
+    probes._lib = lib
+    try:
+        yield
+    finally:
+        probes._lib = before
+
+
+def build_beside(beside):
+    """Build the package's probes.cu and ``beside`` (one nvcc each, started
+    together) -> {"this": lib, "beside": lib}, bound."""
+    from ..march_times import build_libs
+
+    built = build_libs(Path(beside), source="probes.cu")
+    return {k: probes.bind(ctypes.CDLL(str(v[1]))) for k, v in built.items()}
+
+
+def measure_beside(case, ins, libs, reps, quick, clock, n_sms, copies):
+    """The slope timing with both libraries in turns (other, this, this,
+    other): the package's fields, each the mean of its two runs, and the
+    other's as ``beside_*``."""
+    runs = {"this": [], "beside": []}
+    for label in ("beside", "this", "this", "beside"):
+        with using(libs[label]):
+            runs[label].append(slope_ns_per_trip(case, ins, reps, quick,
+                                                 copies))
+    res = {"trips": runs["this"][0][0], "blocks": geometry(case)[2] * copies,
+           "sms": sms_used(case, n_sms, copies)}
+    for label, prefix in (("this", ""), ("beside", "beside_")):
+        r = runs[label]
+        ms = [sum(x[1][i] for x in r) / len(r) for i in range(len(r[0][1]))]
+        per_trip = sum(x[2] for x in r) / len(r)
+        fields = dict(ms=ms, **bound_fields(case, ins, per_trip, clock,
+                                            n_sms, copies))
+        res.update({prefix + k: v for k, v in fields.items()})
+    res["speedup"] = res["beside_ns_per_trip"] / res["ns_per_trip"]
+    return res
+
+
+def sass_label_marker(case):
+    """(kernel label in the SASS, the opcode a lookup issues once or twice
+    (per column of one pixel and trip for march_top2), how many times)."""
+    if case.kernel == "march_top2":
+        return "march_top2_kernel", "FMUL", 1
+    args = (probes.FORMS[case.form], probes.AXES[case.axis],
+            probes.DTYPES[case.dtype], case.naccs, case.unroll)
+    label = "gather_accum_kernel<" + ", ".join(map(str, args)) + ">"
+    if case.form == "fma":
+        return label, "FFMA", 1
+    if case.form == "convert":
+        return label, "FADD", 1
+    return label, "LDS", 2 if case.form in ("clip2", "and2") else 1
+
+
+def sass_fields(case, kernels) -> dict:
+    """The case's hot loop (the innermost with the most markers) in the SASS
+    ``kernels`` (:func:`~depthrenderer_tpu_torch.ops.cuda_build.sass`):
+    its instructions, lookups and instructions a lookup (``sass_per_lookup``;
+    where a branch inside can skip a stretch of it, as the march's vote
+    does, also without that stretch: ``sass_fast_per_lookup``) and its
+    commonest opcodes."""
+    from ..ops import cuda_build
+
+    label, marker, per = sass_label_marker(case)
+    loops = cuda_build.sass_loops(kernels.get(label, []))
+    if not loops:
+        return {"sass_kernel": label, "sass": "no loop found"}
+    _, _, ops, guarded = max(loops, key=lambda lp: lp[2][marker])
+    # The march's update recomputes the products it guards: count a column
+    # once, outside.
+    lookups = (ops[marker] - guarded[marker]) / per
+    if not lookups:
+        return {"sass_kernel": label, "sass": f"no {marker} in a loop"}
+    total, skip = sum(ops.values()), sum(guarded.values())
+    res = {"sass_kernel": label, "sass_loop_instrs": total,
+           "sass_loop_lookups": lookups, "sass_per_lookup": total / lookups}
+    if skip:
+        res["sass_fast_per_lookup"] = (total - skip) / lookups
+    if ops["I2F"]:
+        res["sass_i2f_per_lookup"] = ops["I2F"] / lookups
+    res["sass_ops"] = ",".join(f"{o}:{n}" for o, n in ops.most_common(8))
+    return res
+
+
+# Conversions a clock per SM of I2F, the int-to-float unit a conversion
+# from 16 bits (bitcast's epilogue) takes; I2FP, which converts 32 bits (the
+# u32 epilogue, the convert baseline), is not this slow.
+I2F_PER_CLOCK = 16
+
+
+def issue_fields(case, res, clock_mhz, n_sms: int, copies: int) -> dict:
+    """From the hot loop's SASS: the time over the issue floor of its
+    instructions (those no branch inside it skips; 4 warp instructions a
+    clock per SM used), and, where it converts with I2F, over that unit's
+    floor (``x_conv``, which then also sets ``x_stated`` if it binds)."""
+    per = res.get("sass_fast_per_lookup", res.get("sass_per_lookup"))
+    if per is None or clock_mhz is None or "ns_per_trip" not in res:
+        return {}
+    # Units of the SASS count a trip: lookups, or columns of a sweep.
+    units = lookups_per_trip(case) * copies
+    if case.kernel == "march_top2":
+        units *= case.table[1]
+    hz = sms_used(case, n_sms, copies) * clock_mhz * 1e6
+    t = res["ns_per_trip"]
+    out = {"x_issue": t / (units / 32 * per / (4 * hz) * 1e9)}
+    i2f = res.get("sass_i2f_per_lookup", 0)
+    if i2f:
+        conv = units * i2f / (I2F_PER_CLOCK * hz) * 1e9
+        out["x_conv"] = t / conv
+        if t / conv < res.get("x_stated", float("inf")):
+            out.update(stated_by="i2f", x_stated=t / conv)
+    return out
 
 
 def _fmt(v):
@@ -215,18 +376,30 @@ def _fmt(v):
 
 
 def run(cases, device="cuda", quick=False, check=True, reps=20,
-        order="random", blocks=0, out=print) -> list:
+        order="random", blocks=0, out=print, beside=None,
+        sass=False) -> list:
     """Check (``check``) and, on the card, time every case (in ``order``;
     gather_accum, roll_accum and march_top2 with as many copies as make
-    about ``blocks`` blocks); prints one line a case through ``out`` and
-    returns the results."""
+    about ``blocks`` blocks; ``beside`` another probes.cu timed in turns,
+    ``sass`` the hot loops' instructions a lookup); prints one line a case
+    through ``out`` and returns the results."""
     dev = torch.device(device)
+    libs = kernels = None
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("the probes run on a CUDA device; pass "
                                "--device cpu for the plain twins")
         clock = max_sm_clock_mhz()
         n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        if beside is not None:
+            libs = build_beside(beside)
+            probes._lib = libs["this"]
+        if sass:
+            from ..ops import cuda_build
+
+            kernels = cuda_build.sass(probes.build_kernels())
+    elif beside is not None or sass:
+        raise RuntimeError("--beside and --sass read the card's kernels")
     results = []
     for case in cases:
         ins = device_inputs(case, dev, order=order)
@@ -237,8 +410,20 @@ def run(cases, device="cuda", quick=False, check=True, reps=20,
                "order": order, "copies": n}
         if check:
             res.update(check_case(case, ins, n))
+            if libs is not None:
+                with using(libs["beside"]):
+                    res["beside_equal"] = check_case(case, ins, n)["equal"]
         if dev.type == "cuda":
-            res.update(measure_case(case, ins, reps, quick, clock, n_sms, n))
+            if libs is not None:
+                res.update(measure_beside(case, ins, libs, reps, quick, clock,
+                                          n_sms, n))
+            else:
+                res.update(measure_case(case, ins, reps, quick, clock, n_sms,
+                                        n))
+            if kernels is not None and case.kernel in ("gather_accum",
+                                                       "march_top2"):
+                res.update(sass_fields(case, kernels))
+                res.update(issue_fields(case, res, clock, n_sms, n))
         else:
             res["timing"] = "not measured (cpu)"
         out("[probe] " + " ".join(f"{k}={_fmt(v)}" for k, v in res.items()))
@@ -261,14 +446,20 @@ def main(argv=None) -> int:
     ap.add_argument("--blocks", type=int, default=0,
                     help="copy gather_accum's, roll_accum's and "
                     "march_top2's output over about this many blocks")
+    ap.add_argument("--beside", type=Path, default=None,
+                    help="also build this other probes.cu and time it in "
+                    "turns with the package's")
+    ap.add_argument("--sass", action="store_true",
+                    help="print the hot loops' SASS instructions a lookup")
     args = ap.parse_args(argv)
     cases = [c for c in CASES.values() if not args.case or c.name in args.case]
     results = run(cases, args.device, quick=args.quick, order=args.order,
-                  blocks=args.blocks)
+                  blocks=args.blocks, beside=args.beside, sass=args.sass)
     if args.json:
         with open(args.json, "w") as f:
             json.dump(results, f, indent=1)
-    bad = [r["name"] for r in results if not r["equal"]]
+    bad = [r["name"] for r in results
+           if not r["equal"] or not r.get("beside_equal", True)]
     if bad:
         print(f"kernel and twin differ: {bad}", file=sys.stderr)
         return 1

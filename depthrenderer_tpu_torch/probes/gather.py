@@ -119,7 +119,7 @@ def gather_params(case, trips: int, copies: int = 1) -> _p.ProbeParams:
         ntab=case.ntab, R=r, C=c, unroll=case.unroll,
         idx_us=si * li if len(case.index) == 3 else 0, idx_ss=li,
         idx_ls=1 if li > 1 else 0, mask=case.mask, trips=trips, bs=bs, bl=bl,
-        copies=copies)
+        copies=copies, lg_stripe=_p.stripe(case))
 
 
 def _out_shape(case, copies: int):

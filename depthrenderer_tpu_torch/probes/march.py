@@ -9,6 +9,7 @@ P3c are gathers (``gather_accum``, :mod:`.gather`).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import probes as _p
@@ -65,6 +66,53 @@ def march_top2_plain(curve, zc, qx, case, trips: int, copies: int = 1):
         o2 = torch.where(key2 == m2, iota, BIG).amin(dim=1, keepdim=True)
         acc = acc + torch.cat([o1, m1, o2, m2], dim=1).reshape(acc.shape)
     return acc if copies == 1 else acc.expand(copies, *acc.shape).contiguous()
+
+
+# Inputs built to reach the corners of march_top2's top 2 (edge_inputs).
+EDGE_CASES = ("tied_z", "zero_product", "no_crossing", "wrap_pair")
+
+
+def edge_inputs(name: str, seed: int = 0) -> dict:
+    """march_top2 inputs at the probe's shapes (curve and zc (8, 256), qx
+    (8, 128)), drawn from ``seed`` to reach one corner of the top 2
+    (numpy, keyed as :func:`~depthrenderer_tpu_torch.probes.make_inputs`
+    keys them):
+
+    * ``tied_z``: an unsorted curve (a crossing at about every other
+      column) and depths from {-0.5, 0, 0.5}: equal keys for both places;
+    * ``zero_product``: pixels and curve values of about 1e-30 to 1e-28,
+      the curve drawn partly from the pixels' own values: at trip 0 a
+      product is exactly 0 (f = 0, or a product that rounds to 0 with no
+      change of sign) at every column;
+    * ``no_crossing``: rows whose curve lies above every pixel (rows 0-3)
+      or below (rows 4-7): no hit, column 0 with BIG;
+    * ``wrap_pair``: column 0 below every pixel and the rest above: one hit
+      at column 0 and one at column C - 1 (the wrap), with equal depths in
+      rows 0-3."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    y, c, n = 8, 256, 128
+    qx = np.arange(n) * 15.0 + 0.5
+    zc = rng.uniform(-1, 1, (y, c))
+    if name == "tied_z":
+        curve = rng.uniform(0, 1920, (y, c))
+        zc = rng.choice([-0.5, 0.0, 0.5], (y, c))
+    elif name == "zero_product":
+        qx = (np.arange(n) + 1.0) * 1e-30
+        pool = np.concatenate([qx, rng.uniform(0, 2e-28, n)])
+        curve = np.sort(rng.choice(pool, (y, c)), axis=1)
+    elif name == "no_crossing":
+        curve = np.sort(rng.uniform(0, 100, (y, c)), axis=1)
+        curve[:4] += 2000.0
+        curve[4:] -= 200.0
+    elif name == "wrap_pair":
+        curve = 2000.0 + np.sort(rng.uniform(0, 100, (y, c)), axis=1)
+        curve[:, 0] = -10.0
+        zc[:4, c - 1] = zc[:4, 0]
+    else:
+        raise ValueError(f"unknown edge case {name!r}")
+    return {"curve": curve.astype(f32), "zc": zc.astype(f32),
+            "qx": np.broadcast_to(qx.astype(f32), (y, n)).copy()}
 
 
 def march_top2(curve, zc, qx, case, trips: int, copies: int = 1):

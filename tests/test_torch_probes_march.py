@@ -10,8 +10,9 @@ for bit. The probe's run functions (``p1``, ``p2_run``, ``p3_run``,
 helper; here that helper is replaced by one that keeps what it is given and
 stops the run, so the probe's own inputs and trips=1 kernel are used and
 none of its timing runs. P2 is also run at trips 4 through ``p2(trips)``,
-and P3's kernels at trips 3 through a ``pallas_call`` made as the probe's
-``mk`` makes it, so that the sums over trips are compared too.
+and on inputs built for its top 2's corners, and P3's kernels at trips 3
+through a ``pallas_call`` made as the probe's ``mk`` makes it, so that the
+sums over trips are compared too.
 
 P2's shift ``0.001 * t`` is a float32 product added to ``qx``: on an input
 made so that the contracted form ``fma(0.001, t, qx)`` and the product-then-
@@ -31,6 +32,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from depthrenderer_tpu_torch import probes
+from depthrenderer_tpu_torch.probes import march
 
 from test_torch_probes_gather import EXPERIMENTS, bits, load_probe, port_output
 
@@ -133,6 +135,28 @@ def test_march_shift_is_a_float32_product_then_sum():
         assert np.array_equal(bits(g), bits(w))
     # Trip 3 adds column 0 (no crossing), as after trips 0-2.
     assert np.array_equal(want[1][0::4], want[0][0::4])
+
+
+@pytest.mark.parametrize("name", march.EDGE_CASES)
+def test_march_top2_edge_inputs_equal_jax_probe(name):
+    """Inputs built for the top 2's corners (``march.edge_inputs``: tied
+    depths, products of exactly 0, rows with no crossing, the hits at
+    column 0 and at the wrap column C - 1) through the probe's P2 at trips
+    1 and 5, bit for bit."""
+    case = CASES["spm_p2_march"]
+    mod = load_probe("scan_probe_march")
+    ins = march.edge_inputs(name, seed=7)
+    for trips in (1, 5):
+        want = interpret(mod.p2(trips), *ins.values())
+        got = port_output(case, list(ins.values()), trips)
+        assert np.array_equal(bits(got), bits(want)), trips
+    o1, m1, o2, m2 = (want[k::4] for k in range(4))
+    if name == "no_crossing":
+        assert (o1 == 0).all() and (o2 == 0).all() and np.isinf(m1).all()
+    elif name == "wrap_pair":
+        assert set(np.unique(np.concatenate([o1, o2]))) <= {0.0, 5 * 255.0}
+    elif name == "tied_z":
+        assert ((m1 == m2) & (o1 != o2)).any()
 
 
 @pytest.mark.parametrize("name", sorted(P3))
