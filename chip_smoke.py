@@ -91,27 +91,36 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
 9. ``probes``: the probe kernels of ``csrc/probes.cu`` (the TPU probes of
    ``experiments/``, ROADMAP K3). ``probes_vs_plain``: every case of
    ``depthrenderer_tpu_torch.probes`` (40), kernel against twin bit for bit
-   at the case's check trip count. Then the launch counters are set to 0
-   and ``python -m depthrenderer_tpu_torch.probes``'s runner times every
-   case (one ``[probe]`` line each: ns per lookup from the slope between
-   two trip counts, lookups/s, blocks, SMs and the bound) with ``--quick``:
+   at the case's check trip count (onehot_dot also with 3 copies). Then
+   the launch counters are set to 0 and ``python -m
+   depthrenderer_tpu_torch.probes``'s runner times every case (one
+   ``[probe]`` line each: ns per lookup from the slope between two trip
+   counts, lookups/s, blocks, SMs and the bound) with ``--quick``:
    it skips the two long counts, gather_probe9's 65,536 trips (timed at
    2,048 and 8,192) and gather_probe10's 65,536 (its 1,024 / 8,192 pair
    gives the slope); every kernel must have launched. For the JSON line
    each kernel's numbers are one case's at its check trips: gather_accum
    ``gp1_lane`` (gather_probe.py's lane gather, 256 trips), roll_accum
    ``gp5_roll``, onehot_dot ``gp1_onehot``, transpose ``spm_p1_transpose``
-   (it and its library call ``x.t().contiguous()`` timed from launches
-   captured in CUDA graphs of two sizes, without the host's launch cost or
-   the graph's), march_top2 ``spm_p2_march``; the ``probes`` line also
+   (it timed from launches captured in CUDA graphs of two sizes, without
+   the host's launch cost or the graph's), march_top2 ``spm_p2_march``.
+   Their library calls are timed the same way, from graphs of 20 and 40
+   calls: the transpose's ``x.t().contiguous()``, a trip of onehot_dot as
+   ``torch.matmul`` of the prebuilt float32 one-hot by the table (full
+   float32), a set of roll_accum as ``torch.roll``; the JSON's
+   ``library_ms`` is that call's time times the calls of the check launch
+   (its trips; times the 64 sets for the roll). The ``probes`` line also
    gives each of those cases' slope over its stated bound (``*_x``: the
-   runner's ``x_stated``).
+   runner's ``x_stated``) and over its library call (``*_x_library``).
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
 run's data needs over 67 TFLOP/s (float32 outside the tensor cores), the
 H100 SXM's published peaks (the pair kernel: ``march_times.pair_bounds``,
-12 operations an active pair). The second-to-last line is the kernel table as
+12 operations an active pair); onehot_dot's operations are the
+multiply-adds of its three bf16 parts (``probes.bound_work``, the count
+the runner's bound reads) over the tensor cores' 989 TFLOP/s (bf16,
+dense). The second-to-last line is the kernel table as
 JSON, the last line ``{"ok": true, "device": {...}}``. Without a CUDA device
 it exits 2 and prints no result.
 """
@@ -1235,21 +1244,25 @@ def big_grid_path(dev, tmp):
 
 
 def probe_cost(case, ins, out, trips):
-    """(bytes, float32 operations) of one probe launch at ``trips``: inputs
-    read once, the output written once; one add per lookup (gathers,
-    roll), two operations per multiply-add (onehot_dot's dense one-hot
-    product), a subtract and a multiply per (row, pixel, column) for
-    march_top2, none for the transpose."""
+    """(bytes, operations, their peak rate) of one probe launch at
+    ``trips``: inputs read once, the output written once; one FP32 add per
+    lookup (gathers, roll), a subtract and a multiply per (row, pixel,
+    column) for march_top2, none for the transpose; onehot_dot's dense
+    product on its three bf16 parts, two operations a multiply-add
+    (``probes.bound_work``), at the tensor cores' bf16 rate."""
     from depthrenderer_tpu_torch import probes
+    from depthrenderer_tpu_torch.march_times import (BF16_TENSOR_OPS_PER_S,
+                                                     FP32_OPS_PER_S)
 
     moved = nbytes(*ins.values(), out)
     if case.kernel == "transpose":
-        return moved, 0
+        return moved, 0, FP32_OPS_PER_S
     if case.kernel == "onehot_dot":
-        return moved, 2 * probes.bound_work(case)[0] * trips
+        return (moved, 2 * probes.bound_work(case)[0] * trips,
+                BF16_TENSOR_OPS_PER_S)
     if case.kernel == "march_top2":
-        return moved, probes.bound_work(case)[0] * trips
-    return moved, probes.lookups_per_trip(case) * trips
+        return moved, probes.bound_work(case)[0] * trips, FP32_OPS_PER_S
+    return moved, probes.lookups_per_trip(case) * trips, FP32_OPS_PER_S
 
 
 def probes_phase(dev):
@@ -1269,6 +1282,12 @@ def probes_phase(dev):
                                  f"(max abs {res['max_abs_err']})")
         errs[case.kernel] = max(errs[case.kernel], res["max_abs_err"])
         checked[case.name] = (res, ins)
+        if case.kernel == "onehot_dot":
+            # Its copies too: each its own 128 blocks.
+            copied = check_case(case, ins, copies=3)
+            if not copied["equal"]:
+                raise AssertionError(f"probe {case.name}: 3 copies differ "
+                                     "from the twin")
     phase("probes_vs_plain", cases=len(checked), all_equal=True,
           plain_s=f"{sum(r['plain_ms'] for r, _ in checked.values()) / 1e3:.2f}")
 
@@ -1286,18 +1305,22 @@ def probes_phase(dev):
         case = probes.CASES[name]
         res, ins = checked[name]
         trips = res["check_trips"]
-        moved, ops = probe_cost(case, ins,
-                                probes.run_case(case, ins, trips), trips)
-        b_ms, b_by = bound(moved, ops)
+        moved, ops, rate = probe_cost(
+            case, ins, probes.run_case(case, ins, trips), trips)
+        b_ms, b_by = bound(moved, ops, rate)
+        lib_ms = timed[name].get("library_trip_ms")
         out[kernel] = {"max_abs_err": errs[kernel], "ms": res["check_ms"],
                        "plain_ms": res["plain_ms"], "bound_ms": b_ms,
                        "bound_by": b_by,
-                       "library_ms": timed[name].get("library_ms")}
+                       "library_ms": lib_ms and lib_ms * trips}
+    nan = float("nan")
     phase("probes", cases=len(timed), launches=json.dumps(launches),
           **{f"{k}_ms": f"{v['ms']:.4f}" for k, v in out.items()},
           **{f"{k}_bound_ms": f"{v['bound_ms']:.6f}" for k, v in out.items()},
-          **{f"{k}_x": f"{timed[n].get('x_stated', float('nan')):.3f}"
-             for k, n in PROBE_KERNELS.items()})
+          **{f"{k}_x": f"{timed[n].get('x_stated', nan):.3f}"
+             for k, n in PROBE_KERNELS.items()},
+          **{f"{k}_x_library": f"{timed[n]['x_library']:.3f}"
+             for k, n in PROBE_KERNELS.items() if "x_library" in timed[n]})
     return out, launches
 
 

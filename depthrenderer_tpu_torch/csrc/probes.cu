@@ -21,19 +21,21 @@
 //   roll_accum    gather_probe5 build_roll: out[s, l] += t[s, (l - sh) mod C],
 //                 jnp.roll's convention, with a per-set traced shift.
 //   onehot_dot    gather_probe build_onehot_mxu: the one-hot contraction done
-//                 as dense f32 multiply-adds over every cell of a table in
-//                 shared memory (not a shortcut to a gather).
+//                 densely on the tensor cores, every (row, cell, value)
+//                 multiply-add over every cell of the table each trip (not a
+//                 shortcut to a gather: no k-block is skipped).
 //   transpose     scan_probe_march P1, through shared-memory tiles.
 //   march_top2    scan_probe_march P2: per row y and pixel l the dense sign
 //                 test over the row's C crossing columns and the top 2 keys
 //                 with their lowest column index, summed over the trips.
 //
-// What bounds them on an H100: a gather is one shared-memory word per lookup
-// per thread, 32 words a clock per SM when the 32 lanes of a warp hit 32
-// banks; the baselines and onehot_dot are bound by FP32 at 128 multiply-adds
-// a clock per SM, the march's sweep by its two FP32 operations a column
-// (and, in practice, by the compares and selects around them), the
-// transpose by device memory.
+// What bounds them on an H100: a gather or the roll is one shared-memory
+// word per lookup per thread, 32 words a clock per SM when the 32 lanes of a
+// warp hit 32 banks; the baselines are bound by FP32 at 128 multiply-adds a
+// clock per SM, onehot_dot by the tensor cores' bf16 rate (2,048 dense
+// multiply-adds a clock per SM) on its three parts, the march's sweep by its
+// two FP32 operations a column (and, in practice, by the compares and
+// selects around them), the transpose by device memory.
 //
 // gather_accum's design: the block's slice of the table is staged in shared
 // memory, each word as 2^lg_stripe copies side by side (ProbeParams), so
@@ -65,6 +67,62 @@
 // a warp vote finds a product <= 0 in it: a pixel's row crosses it in few
 // of the 64 groups.
 //
+// roll_accum's design: a thread per output (s, l), a block one row of 128
+// pixels (4 warps; the probe's 8 rows on 8 SMs). Set u's word for pixel l is
+// t[s, (l - sh[u]) mod C] on every trip, so each thread computes its 64 byte
+// offsets once, into registers: a lookup is one shared-memory load
+// (volatile: the same word is read every trip) and the add. A trip's 64
+// lookups run in stages of 16, each stage's loads issued before the
+// previous stage's adds, the adds one chain in (trip, set) order. A warp's
+// 32 lanes read 32 neighbouring columns (mod C): 32 banks. The one chain an
+// output lets a warp add once in 4 clocks, so 4 warps an SM (one a
+// scheduler) ask for 32 words a clock, the shared-memory rate; with copies
+// an SM holds more warps than that needs.
+//
+// onehot_dot's design: trip i's product onehot (P x R) @ tab (R x W, W <=
+// 8) is taken by mma.sync m16n8k16, bf16 in and f32 accumulate
+// (mma_bf16_16816 below). A (16 x 16) is the one-hot: its rows are the
+// block's 8 output rows at trip i, then the same rows at trip i + 1; B (16
+// x 8) is a part of the table, its 8 columns the W values of a cell. One
+// instruction then does 16 x 8 x 16 needed multiply-adds, and a trip
+// exactly the 3 x P x R x W of the table's three parts. The tensor cores
+// multiply bf16, so tab is split once a launch into three bf16 parts (hi,
+// mid, lo), each with its own f32 accumulator, zeroed every round: an
+// accumulator gathers one exact product (1.0 times a part) and exact zeros,
+// whatever order or width the tensor core adds in, and (lo + mid) + hi on
+// the CUDA cores gives x back exactly.
+//
+// The split (split_bf16x3; depthrenderer_tpu_torch/probes/gather.py
+// split_bf16x3 is the same formula): hi is x rounded toward zero to bf16
+// (x's high 16 bits), r = x - hi (exact: same sign, |hi| <= |x| < 2|hi|),
+// mid is r toward zero and lo = r - mid (exact, likewise). x's 24
+// significant bits sit at 2^e .. 2^(e-23); hi holds 2^e .. 2^(e-7) and r
+// the 16 bits below; mid holds r's top 8 from its leading bit 2^e1, e1 <= e
+// - 8, so lo holds 2^(e1-8) .. 2^(e-23), at most e1 - e + 16 <= 8 bits: lo
+// is a bf16 exactly, and hi + mid + lo = x. The parts are also kept normal
+// bf16 (not subnormals, whose handling by the tensor cores is not what this
+// probe asks): where |hi| >= 2^-100, each part's lowest bit is >= 2^(e-23)
+// >= 2^-123; below, r is scaled by 2^64 before mid and lo are taken (exact;
+// then >= 2^-85), and the join scales it back: x = (lo + mid) * (|hi| <
+// 2^-100 ? 2^-64 : 1) + hi, every step exact. So the split holds, in
+// normal parts, for every finite normal f32 and +-0. An f32 subnormal is
+// split exactly too, but its hi is a bf16 subnormal, which the tensor core
+// must pass through (the card test's subnormal table holds it to that).
+//
+// The K of R = 1,536 cells is split over the block's 8 warps, 12 k-steps of
+// 16 cells each, so a warp keeps its B fragments of the three parts in 72
+// registers for the whole launch. It rebuilds A from registers every k-step:
+// for each of its two rows it knows, from idx and the trip, the k-step of the
+// hot cell and the bf16 1.0's place in the fragment (d = ix - k0 - column),
+// and a compare and two selects set the row's A registers to it or to 0. A
+// round is two A tiles (four trips): 6 independent accumulator chains a
+// warp. A warp's (lo + mid) + hi of each (trip, row, value) is its share of
+// the sum over cells, x or 0; the shares meet in shared memory (double
+// buffered: one barrier a round), and lane w < W of warp r sums the 8
+// warps' shares pairwise (x and exact zeros: any order is exact) and adds
+// each trip's x to output (p0 + r, w), in trip order, as the twin does. 8
+// output rows a block: the probe's 1,024 rows take 128 SMs.
+//
 // Numerics: built with --fmad=false; every sum is taken in the probe's order
 // (sequential f32 adds per accumulator, a0 + a1 + a2 + a3 at the end), so
 // each result equals its plain PyTorch twin (depthrenderer_tpu_torch/probes/
@@ -80,9 +138,10 @@
 // Mirror of probes/__init__.py::ProbeParams (field order and types must
 // match). Table (ntab, R, C); output (S, L); index sets (unroll, ., .) with
 // element strides idx_us, idx_ss, idx_ls (idx_ls = 0 broadcasts a column).
-// gather_accum, roll_accum and march_top2 compute `copies` identical
-// outputs, one per blockIdx.z, to fill more of the card than the probe's one
-// tile does. lg_stripe: gather_accum's staged word stride, log2 (see above).
+// gather_accum, roll_accum, onehot_dot and march_top2 compute `copies`
+// identical outputs, one per blockIdx.z, to fill more of the card than the
+// probe's one tile does. lg_stripe: gather_accum's staged word stride, log2
+// (see above).
 struct ProbeParams {
   int form, axis, dtype, naccs;
   int S, L, ntab, R, C, unroll;
@@ -98,7 +157,7 @@ enum Axis { kLane, kSublane, kFlat };
 enum Dtype { kF32, kU32, kI32, kBitcast };
 
 constexpr float kBig = 3.0e38f;
-// gather_accum's lookups a stage (see above).
+// gather_accum's and roll_accum's lookups a stage (see above).
 constexpr int kStage = 16;
 
 __device__ __forceinline__ int clampi(int x, int lo, int hi) {
@@ -313,72 +372,215 @@ gather_accum_kernel(const uint32_t* __restrict__ tab,
   else out[(size_t)s * p.L + l] = __float_as_uint(r);
 }
 
-// out[s, l] = sum over trips and sets u of t[s, (l - sh[u]) mod C]; a block
-// covers bs rows x bl pixels and stages its rows and the shifts.
-__global__ void __launch_bounds__(1024)
+namespace {
+
+// roll_accum's stage ch: the words of sets ch * kStage .. + kStage - 1.
+template <int U>
+__device__ __forceinline__ void roll_stage(float (&v)[kStage],
+                                           const uint32_t (&off)[U], int ch) {
+#pragma unroll
+  for (int j = 0; j < kStage; ++j) v[j] = as_f32(lds(off[ch * kStage + j]));
+}
+
+}  // namespace
+
+// out[s, l] = sum over trips and sets u of t[s, (l - sh[u]) mod C] (see
+// above): a block covers bs rows x bl pixels and stages its rows; U sets.
+template <int U>
+__global__ void __launch_bounds__(128)
 roll_accum_kernel(const float* __restrict__ tab, const int* __restrict__ sh,
                   float* __restrict__ out, ProbeParams p) {
+  static_assert(U % (2 * kStage) == 0, "stages of 16 sets, in pairs");
   const int tl = threadIdx.x, ts = threadIdx.y;
   const int nthr = blockDim.x * blockDim.y, tid = ts * blockDim.x + tl;
   const int s0 = blockIdx.y * p.bs, l = blockIdx.x * p.bl + tl;
   float* st = (float*)probe_smem;
-  int* ssh = (int*)(probe_smem + p.bs * p.C);
   for (int k = tid; k < p.bs * p.C; k += nthr)
     st[k] = tab[(size_t)s0 * p.C + k];
-  for (int k = tid; k < p.unroll; k += nthr) ssh[k] = sh[k];
+  // The thread's word of each set, as a byte offset, for every trip.
+  const uint32_t row = (uint32_t)(ts * p.C) << 2, cmask = p.C - 1;
+  uint32_t off[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+    off[u] = row + (((uint32_t)(l - sh[u]) & cmask) << 2);
   __syncthreads();
-  const float* row = st + ts * p.C;
-  const int cmask = p.C - 1;
+  // Stage ch + 1's loads (the next trip's first after the last) are issued
+  // before stage ch's adds.
+  constexpr int NS = U / kStage;
+  float v0[kStage], v1[kStage];
+  roll_stage<U>(v0, off, 0);
   float acc = 0.f;
-  for (int i = 0; i < p.trips; ++i)
-    for (int u = 0; u < p.unroll; ++u) acc = acc + row[(l - ssh[u]) & cmask];
+  for (int i = 0; i < p.trips; ++i) {
+#pragma unroll
+    for (int ch = 0; ch < NS; ch += 2) {
+      roll_stage<U>(v1, off, ch + 1);
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) acc = acc + v0[j];
+      roll_stage<U>(v0, off, (ch + 2) % NS);
+#pragma unroll
+      for (int j = 0; j < kStage; ++j) acc = acc + v1[j];
+    }
+  }
   out[((size_t)blockIdx.z * p.S + s0 + ts) * p.L + l] = acc;
 }
 
-// acc[q, w] += sum over cells c of onehot(c == (idx[q] + i) mod R) *
-// tab[c, w]. A warp per output row q, lane j sweeps cells j, j + 32, ...
-// (the table is staged transposed, [w][c], so the 32 lanes hit 32 banks);
-// the lanes' partial sums meet in shared memory and lane w < W adds them in
-// lane order. With a one-hot row every sum is exact, whatever its order.
-__global__ void __launch_bounds__(256)
+// The tensor-core instruction onehot_dot runs: d (16 x 8 f32) += a (16 x
+// 16 bf16, row-major) x b (16 x 8 bf16, column-major), one warp together
+// (PTX mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32). With g = lane
+// / 4 and t = lane % 4, a lane holds a[0] = A[g][2t, 2t + 1], a[1] = A[g +
+// 8][2t, 2t + 1], a[2] = A[g][2t + 8, 2t + 9], a[3] = A[g + 8][2t + 8, 2t +
+// 9], b[0] = B[2t, 2t + 1][g], b[1] = B[2t + 8, 2t + 9][g] (the lower index
+// in the low 16 bits), d = D[g][2t], D[g][2t + 1], D[g + 8][2t], D[g +
+// 8][2t + 1]. The host build of this file for the CPU tests brings its own.
+#ifdef __CUDACC__
+__device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
+                                               const uint32_t (&a)[4],
+                                               const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+#endif
+
+namespace {
+
+// onehot_dot's shape (see above): 8 warps a block, each 12 k-steps of 16
+// cells (R = 1,536), 8 output rows a block, two A tiles (four trips) a
+// round.
+constexpr int kOhWarps = 8, kOhSteps = 12, kOhRows = 8, kOhTiles = 2;
+constexpr int kOhCells = kOhWarps * kOhSteps * 16;
+constexpr int kOhTrips = 2 * kOhTiles;
+// Below kOhTiny, mid and lo are taken of r * 2^64 (see above).
+constexpr float kOhTiny = 0x1p-100f, kOhUp = 0x1p64f, kOhDown = 0x1p-64f;
+// The bf16 word of 1.0.
+constexpr uint32_t kBf16One = 0x3F80u;
+
+// x's three bf16 parts, hi, mid and lo (see above).
+__device__ __forceinline__ void split_bf16x3(float x, uint32_t (&part)[3]) {
+  const uint32_t xb = __float_as_uint(x);
+  const float hi = __uint_as_float(xb & 0xFFFF0000u);
+  float r = x - hi;
+  if (fabsf(hi) < kOhTiny) r = r * kOhUp;
+  const uint32_t rb = __float_as_uint(r);
+  part[0] = xb >> 16;
+  part[1] = rb >> 16;
+  part[2] = __float_as_uint(r - __uint_as_float(rb & 0xFFFF0000u)) >> 16;
+}
+
+// x from its parts (each as the f32 the tensor core returns).
+__device__ __forceinline__ float join_bf16x3(float hi, float mid, float lo) {
+  const float r = lo + mid;
+  return (fabsf(hi) < kOhTiny ? r * kOhDown : r) + hi;
+}
+
+}  // namespace
+
+// acc[p, w] += sum over cells c of onehot(c == (idx[p] + i) mod R) *
+// tab[c, w], over the trips i (see above): block (32, 8), 8 rows p from
+// p0, copy blockIdx.z.
+__global__ void __launch_bounds__(32 * kOhWarps)
 onehot_dot_kernel(const float* __restrict__ tab, const int* __restrict__ idx,
                   float* __restrict__ out, ProbeParams p) {
-  const int lane = threadIdx.x, warp = threadIdx.y, W = p.L, R = p.R;
-  const int nthr = blockDim.x * blockDim.y, tid = warp * 32 + lane;
-  const int q = blockIdx.x * blockDim.y + warp;
-  float* st = (float*)probe_smem;             // [W][R]
-  float* red = st + W * R;                    // [warps][W][32]
-  for (int k = tid; k < W * R; k += nthr)
-    st[(k % W) * R + k / W] = tab[k];
-  __syncthreads();
-  const int base = idx[q];
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  float* myred = red + warp * W * 32;
-  for (int i = 0; i < p.trips; ++i) {
-    const int ix = (base + i) % R;
-    float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int c = lane; c < R; c += 32) {
-      const float oh = c == ix ? 1.f : 0.f;
+  static_assert(kOhWarps == kOhRows, "warp r's lanes own output row p0 + r");
+  const int lane = threadIdx.x, warp = threadIdx.y, W = p.L;
+  const int g = lane >> 2, t = lane & 3, p0 = blockIdx.x * kOhRows;
+  // This warp's B fragments of the three parts, k-step kk: cells c0 + kk *
+  // 16 + {2t, 2t + 1} and {2t + 8, 2t + 9}, value g.
+  const int c0 = warp * kOhSteps * 16 + 2 * t;
+  uint32_t b[kOhSteps][3][2];
 #pragma unroll
-      for (int w = 0; w < 8; ++w)
-        if (w < W) part[w] = fmaf(oh, st[w * R + c], part[w]);
+  for (int kk = 0; kk < kOhSteps; ++kk) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = c0 + kk * 16 + 8 * h;
+      uint32_t lo[3], hi[3];
+      split_bf16x3(g < W ? tab[(size_t)c * W + g] : 0.f, lo);
+      split_bf16x3(g < W ? tab[(size_t)(c + 1) * W + g] : 0.f, hi);
+#pragma unroll
+      for (int q = 0; q < 3; ++q) b[kk][q][h] = lo[q] | hi[q] << 16;
     }
+  }
+  // Row p0 + g's cell at the round's first trip, in [0, R).
+  int ix = idx[p0 + g] % kOhCells;
+  if (ix < 0) ix += kOhCells;
+  float* red = (float*)probe_smem;  // [2][warp][trip][row][8]
+  constexpr int kRed = kOhWarps * kOhTrips * kOhRows * 8;
+  float acc = 0.f;
+  for (int i0 = 0, buf = 0; i0 < p.trips; i0 += kOhTrips, buf ^= 1) {
+    // Per tile j and row half r (trip i0 + 2j + r): the k-step of the hot
+    // cell, counted from this warp's first (-1 past the last trip), and its
+    // 1.0 in a[r] (columns < 8) or a[r + 2] (columns >= 8).
+    int kb[kOhTiles][2];
+    uint32_t fl[kOhTiles][2], fh[kOhTiles][2];
 #pragma unroll
-    for (int w = 0; w < 8; ++w)
-      if (w < W) myred[w * 32 + lane] = part[w];
+    for (int j = 0; j < kOhTiles; ++j) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        int x = ix + 2 * j + r;
+        if (x >= kOhCells) x -= kOhCells;
+        const int col = x & 15;
+        const uint32_t one =
+            (col & 7) >> 1 == t ? kBf16One << ((col & 1) << 4) : 0u;
+        kb[j][r] = i0 + 2 * j + r < p.trips ? (x >> 4) - warp * kOhSteps : -1;
+        fl[j][r] = col < 8 ? one : 0u;
+        fh[j][r] = col < 8 ? 0u : one;
+      }
+    }
+    ix += kOhTrips;
+    if (ix >= kOhCells) ix -= kOhCells;
+    float d[kOhTiles][3][4];
+#pragma unroll
+    for (int j = 0; j < kOhTiles; ++j)
+#pragma unroll
+      for (int q = 0; q < 3; ++q)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[j][q][e] = 0.f;
+    // Every k-step, every tile, every part: the dense contraction.
+#pragma unroll
+    for (int kk = 0; kk < kOhSteps; ++kk) {
+#pragma unroll
+      for (int j = 0; j < kOhTiles; ++j) {
+        const bool h0 = kb[j][0] == kk, h1 = kb[j][1] == kk;
+        const uint32_t a[4] = {h0 ? fl[j][0] : 0u, h1 ? fl[j][1] : 0u,
+                               h0 ? fh[j][0] : 0u, h1 ? fh[j][1] : 0u};
+#pragma unroll
+        for (int q = 0; q < 3; ++q) mma_bf16_16816(d[j][q], a, b[kk][q]);
+      }
+    }
+    // This warp's share of (trip 2j + e / 2, row g, value 2t + e % 2).
+    float* mine = red + buf * kRed + warp * (kOhTrips * kOhRows * 8);
+#pragma unroll
+    for (int j = 0; j < kOhTiles; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        mine[((2 * j + (e >> 1)) * kOhRows + g) * 8 + 2 * t + (e & 1)] =
+            join_bf16x3(d[j][0][e], d[j][1][e], d[j][2][e]);
     __syncthreads();
     if (lane < W) {
-      float got = 0.f;
-      for (int j = 0; j < 32; ++j) got = got + myred[lane * 32 + j];
+      // Each trip's 8 shares summed pairwise, then added in trip order.
+      const float* all = red + buf * kRed + warp * 8 + lane;
+      float x[kOhTrips];
 #pragma unroll
-      for (int w = 0; w < 8; ++w)
-        if (w == lane) acc[w] = acc[w] + got;
+      for (int tt = 0; tt < kOhTrips; ++tt) {
+        float sum[kOhWarps];
+#pragma unroll
+        for (int v = 0; v < kOhWarps; ++v)
+          sum[v] = all[(v * kOhTrips + tt) * kOhRows * 8];
+#pragma unroll
+        for (int h = kOhWarps / 2; h > 0; h /= 2)
+#pragma unroll
+          for (int v = 0; v < h; ++v) sum[v] = sum[v] + sum[v + h];
+        x[tt] = sum[0];
+      }
+#pragma unroll
+      for (int tt = 0; tt < kOhTrips; ++tt)
+        if (i0 + tt < p.trips) acc = acc + x[tt];
     }
-    __syncthreads();
   }
-#pragma unroll
-  for (int w = 0; w < 8; ++w)
-    if (w == lane && w < W) out[(size_t)q * W + w] = acc[w];
+  if (lane < W)
+    out[((size_t)blockIdx.z * p.S + p0 + warp) * W + lane] = acc;
 }
 
 // out (C, R) = x (R, C) transposed, through 32 x 32 tiles in shared memory
@@ -611,25 +813,29 @@ int probe_gather_accum(const void* tab, const void* idx, void* out,
 
 int probe_roll_accum(const void* tab, const void* sh, void* out,
                      const ProbeParams* p, void* stream) {
-  if (bad_tiles(p) || (p->C & (p->C - 1)) != 0)
+  // 64 sets; C a power of two; a block one row (bs 1) of bl pixels.
+  if (bad_tiles(p) || (p->C & (p->C - 1)) != 0 || p->unroll != 64 ||
+      p->bs != 1 || p->bl > 128)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)p->bs * p->C + p->unroll) * 4;
-  if (const int e = set_smem((const void*)roll_accum_kernel, smem)) return e;
-  const dim3 grid(p->L / p->bl, p->S / p->bs, p->copies);
-  const dim3 block(p->bl, p->bs);
-  roll_accum_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
+  const auto fn = roll_accum_kernel<64>;
+  const size_t smem = (size_t)p->C * 4;
+  if (const int e = set_smem((const void*)fn, smem)) return e;
+  const dim3 grid(p->L / p->bl, p->S, p->copies);
+  const dim3 block(p->bl, 1);
+  fn<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)tab, (const int*)sh, (float*)out, *p);
   return (int)cudaGetLastError();
 }
 
 int probe_onehot_dot(const void* tab, const void* idx, void* out,
                      const ProbeParams* p, void* stream) {
-  // p->S rows, p->L (<= 8) values a row, p->R cells; 8 rows a block.
-  if (p->L <= 0 || p->L > 8 || p->S % 8 != 0 || p->R <= 0 || p->trips < 0)
+  // p->S rows (8 a block), p->L (<= 8) values a row, p->R = 1,536 cells.
+  if (p->L <= 0 || p->L > 8 || p->S <= 0 || p->S % kOhRows != 0 ||
+      p->R != kOhCells || p->trips < 0 || p->copies < 1 ||
+      p->copies > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = ((size_t)p->L * p->R + 8 * p->L * 32) * 4;
-  if (const int e = set_smem((const void*)onehot_dot_kernel, smem)) return e;
-  const dim3 grid(p->S / 8), block(32, 8);
+  const size_t smem = (size_t)2 * kOhWarps * kOhTrips * kOhRows * 8 * 4;
+  const dim3 grid(p->S / kOhRows, 1, p->copies), block(32, kOhWarps);
   onehot_dot_kernel<<<grid, block, smem, (cudaStream_t)stream>>>(
       (const float*)tab, (const int*)idx, (float*)out, *p);
   return (int)cudaGetLastError();

@@ -76,6 +76,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM: HBM3
 FP32_OPS_PER_S = 67e12      # H100 SXM: float32 outside the tensor cores
+BF16_TENSOR_OPS_PER_S = 989e12   # H100 SXM: bf16 on the tensor cores, dense
 CASES = ("d10", "d10_colfix_none", "d10_hyps2", "d10_wide", "d10_skip",
          "d10_cull", "d10_wire", "quality1", "quality2", "patch1", "patch2",
          "d11", "d11_colfix_none", "p4", "p4_colfix_none")
@@ -93,10 +94,11 @@ PAIR_FRAMES = 4
 PAIR_OPS = 12
 
 
-def bound(nbytes, ops):
-    """(bound_ms, bound_by): the card's least time for this work."""
+def bound(nbytes, ops, ops_per_s=FP32_OPS_PER_S):
+    """(bound_ms, bound_by): the card's least time for this work (the
+    operations at ``ops_per_s``: float32 unless told otherwise)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 

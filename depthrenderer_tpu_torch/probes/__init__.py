@@ -237,8 +237,9 @@ def geometry(case: Case):
     output row of 128 pixels, staging that row of each table; a sublane
     gather 8 rows x 32 columns, staging all table rows of its 32 columns
     (64 KB at 512 rows); the flat gather one row, staging the whole table.
-    onehot_dot: 8 output rows a block; march_top2: one row y a block;
-    transpose: a 32 x 32 tile of the input a block."""
+    onehot_dot: 8 output rows a block (8 warps, each an eighth of the
+    cells); march_top2: one row y a block; transpose: a 32 x 32 tile of
+    the input a block."""
     s, l = case.out
     if case.kernel == "onehot_dot":
         return 8, 1, s // 8
@@ -345,27 +346,43 @@ def lookups_per_trip(case: Case) -> int:
     return s * l * case.unroll
 
 
+# Dense multiply-adds a clock per SM of an H100: FP32 on the CUDA cores; bf16
+# on the tensor cores (989 TFLOP/s over 132 SMs at a 1.83 GHz clock).
+FP32_MACS_PER_CLOCK = 128
+BF16_TENSOR_MACS_PER_CLOCK = 2048
+# onehot_dot's bf16 parts of each float32 table value (csrc/probes.cu).
+ONEHOT_PARTS = 3
+
+
+def onehot_macs(case: Case) -> int:
+    """Multiply-adds of one trip's one-hot product: rows x cells x values."""
+    return case.out[0] * case.table[0] * case.out[1]
+
+
 def bound_work(case: Case):
     """(units a trip, units a clock per SM, what bounds it): shared-memory
-    words at 32 a clock per SM for a gather (the gathered table words: two
-    for the two-subtable forms), FP32 multiply-adds at 128 a clock per SM
-    for onehot_dot and the baselines (march_top2: a subtract and a multiply
-    per (row, pixel, column)); the transpose is bound by device memory
-    (``None``)."""
+    words at 32 a clock per SM for a gather and the roll (the gathered
+    table words: two for the two-subtable forms); onehot_dot's multiply-adds
+    on its three bf16 parts at the tensor cores' bf16 rate
+    (``tensor_bf16``; :func:`onehot_macs` at FP32's rate is the row's FP32
+    figure); FP32 multiply-adds at 128 a clock per SM for the baselines
+    (march_top2: a subtract and a multiply per (row, pixel, column)); the
+    transpose is bound by device memory (``None``)."""
     n = lookups_per_trip(case)
     if case.kernel == "transpose":
         return 2 * 4 * int(np.prod(case.table)), None, "bytes"
     if case.kernel == "onehot_dot":
-        return case.out[0] * case.table[0] * case.out[1], 128, "fp32"
+        return (ONEHOT_PARTS * onehot_macs(case), BF16_TENSOR_MACS_PER_CLOCK,
+                "tensor_bf16")
     if case.kernel == "march_top2":
-        return 2 * n * case.table[1], 128, "fp32"
+        return 2 * n * case.table[1], FP32_MACS_PER_CLOCK, "fp32"
     if case.form in ("fma", "convert"):
-        return n, 128, "fp32"
+        return n, FP32_MACS_PER_CLOCK, "fp32"
     return (2 if case.form in ("clip2", "and2") else 1) * n, 32, "smem"
 
 
 # Kernels that compute ``copies`` identical outputs when asked to.
-COPIED = ("gather_accum", "roll_accum", "march_top2")
+COPIED = ("gather_accum", "roll_accum", "onehot_dot", "march_top2")
 
 # Index orders: the probe's (uniform in [0, index_high)), or ``lanes``: set
 # u's index at (s, l) is l (mod index_high), so the 32 lanes of a warp read

@@ -9,18 +9,26 @@ against its plain twin at the check trip count (bit for bit), then, on the
 card, the probe's own timing: the kernel's time at the case's two trip
 counts (CUDA events around 20 back-to-back launches queued behind a
 device-side sleep, so the host's launch cost is not timed; the transpose,
-whose time is its launch, and its library call ``x.t().contiguous()``
-from CUDA graphs of 20 and 40 captured launches: the difference over 20),
-and their difference over the extra trips as ns per lookup and lookups/s;
-the blocks and SMs the launch occupies; and the bound: the shared-memory
-words a gather reads at 32 a clock per SM used, FP32 multiply-adds at 128
-a clock per SM used (onehot_dot, the baselines, march_top2's subtract and
-multiply per column), or the transpose's bytes over 3.35 TB/s, at the
-card's maximum SM clock (``nvidia-smi --query-gpu=clocks.max.sm``). Beside
-that bound (``x_bound``), for a gather: the shared-memory bound counted in
-the bank wavefronts the case's indices give under gather_accum's layout
+whose time is its launch, from CUDA graphs of 20 and 40 captured launches:
+the difference over 20), and their difference over the extra trips as ns
+per lookup and lookups/s; the blocks and SMs the launch occupies; and the
+bound: the shared-memory words a gather or the roll reads at 32 a clock per
+SM used, FP32 multiply-adds at 128 a clock per SM used (the baselines,
+march_top2's subtract and multiply per column), onehot_dot's multiply-adds
+on its three bf16 parts at the tensor cores' 2,048 a clock per SM used
+(and, as ``x_fp32``, its one float32 product at FP32's rate), or the
+transpose's bytes over 3.35 TB/s, at the card's maximum SM clock
+(``nvidia-smi --query-gpu=clocks.max.sm``). Beside that bound
+(``x_bound``), for a gather: the shared-memory bound counted in the bank
+wavefronts the case's indices give under gather_accum's layout
 (``wavefronts``, ``x_wave``; :func:`~depthrenderer_tpu_torch.probes.
-wavefronts`); ``x_stated`` is the time over the larger of the two.
+wavefronts`); ``x_stated`` is the time over the larger of the two. Where one
+PyTorch call computes a unit of the work (:func:`library_call`: the
+transpose's ``x.t().contiguous()``, a trip of onehot_dot as
+``torch.matmul`` in full float32, a set of roll_accum as ``torch.roll``),
+its time from CUDA graphs of 20 and 40 calls (``library_ms``; a trip's
+worth, ``library_trip_ms``) and the kernel's time a trip of one output over
+it (``x_library``).
 
 ``--device`` defaults to ``cuda`` and raises without a CUDA device;
 ``--device cpu`` runs every wrapper's plain twin (the check is then the
@@ -32,10 +40,10 @@ gather_probe10's 65,536: its 1,024 and 8,192 pair).
 Two questions the TPU probes did not need to ask: ``--order lanes`` gives
 every gather the index ``l`` at lane ``l`` (no shared-memory bank
 conflict) instead of the probe's random one, and ``--blocks N`` has
-gather_accum, roll_accum and march_top2 compute as many identical outputs
-as take about N blocks (each output on its own blocks), so that the card
-holds more warps than the probe's one tile gives it (their latency hidden)
-and the time per lookup is a throughput.
+gather_accum, roll_accum, onehot_dot and march_top2 compute as many
+identical outputs as take about N blocks (each output on its own blocks),
+so that the card holds more warps than the probe's one tile gives it (their
+latency hidden) and the time per lookup is a throughput.
 
 ``--beside PATH`` builds another ``probes.cu`` (a parent's: ``git show
 HEAD~1:depthrenderer_tpu_torch/csrc/probes.cu > chip_tmp/parent.cu``) into
@@ -44,11 +52,12 @@ holds its kernels against the twins too, and times every case with both
 libraries in turns (other, this, this, other): ``beside_*`` beside the
 package's numbers, each the mean of its two runs. ``--sass`` reads
 ``cuobjdump -sass`` of the built library and prints, per case of
-gather_accum and march_top2, the instructions of its kernel's hot loop
-(the innermost loop with the most loads, or the sweep's column loop) per
-lookup (per column of one pixel and trip for march_top2), and the time over
-the issue floor they set (``x_issue``: 4 warp instructions a clock per SM;
-for the march, the instructions its vote cannot skip); where the loop
+gather_accum, roll_accum, onehot_dot and march_top2, the instructions of
+its kernel's hot loop (the innermost loop with the most loads, the most
+HMMA for onehot_dot, or the sweep's column loop) per lookup (per HMMA for
+onehot_dot; per column of one pixel and trip for march_top2), and the time
+over the issue floor they set (``x_issue``: 4 warp instructions a clock per
+SM; for the march, the instructions its vote cannot skip); where the loop
 converts with I2F (16 a clock per SM), the time over that unit's floor
 (``x_conv``), which sets ``x_stated`` where it binds.
 """
@@ -67,11 +76,13 @@ from pathlib import Path
 import torch
 
 from .. import probes
-from . import (CASES, COPIED, ORDERS, bound_work, check_trips, geometry,
-               lookups_per_trip, make_inputs, run_case, sms_used,
-               timing_trips, wavefronts)
+from . import (CASES, COPIED, FP32_MACS_PER_CLOCK, ORDERS, bound_work,
+               check_trips, geometry, lookups_per_trip, make_inputs,
+               onehot_macs, run_case, sms_used, timing_trips, wavefronts)
 
 HBM_BYTES_PER_S = 3.35e12
+# Multiply-adds of one mma.sync m16n8k16 (onehot_dot's HMMA).
+MMA_MACS = 16 * 8 * 16
 # Device-side sleep queued ahead of each timed run, per launch: longer than
 # the host takes to enqueue one launch, so the launches run back to back.
 _SLEEP_CYCLES_PER_LAUNCH = 400_000
@@ -218,6 +229,11 @@ def bound_fields(case, ins, per_trip, clock_mhz, n_sms: int,
         res.update(wavefronts=waves, x_wave=per_trip / (bound * waves))
     key = max(stated, key=stated.get)
     res.update(stated_by=key, x_stated=per_trip / stated[key])
+    if case.kernel == "onehot_dot":
+        sms = sms_used(case, n_sms, copies)
+        fp32 = onehot_macs(case) * copies / (
+            FP32_MACS_PER_CLOCK * sms * clock_mhz * 1e6) * 1e9
+        res.update(bound_fp32_ns_per_lookup=fp32 / n, x_fp32=per_trip / fp32)
     return res
 
 
@@ -232,21 +248,71 @@ def slope_ns_per_trip(case, ins, reps: int, quick: bool, copies: int = 1):
     return [t1, t2], [ms1, ms2], (ms2 - ms1) * 1e6 / (t2 - t1)
 
 
+def library_call(case, ins):
+    """(fn, calls a trip) for the one PyTorch call that computes a unit of
+    the case's work, or None: the transpose's ``x.t().contiguous()`` (its
+    launch); onehot_dot's ``torch.matmul`` of trip 0's prebuilt float32
+    one-hot (P, R) by the table (a trip; in full float32, see
+    :func:`full_f32_matmul`); roll_accum's ``torch.roll(tab, k, dims=1)``
+    at the first set's shift (a set: ``unroll`` a trip)."""
+    if case.kernel == "transpose":
+        x = ins["x"]
+        return (lambda: x.t().contiguous()), 1
+    if case.kernel == "onehot_dot":
+        tab, idx = ins["tab"], ins["idx"]
+        cells = torch.arange(tab.shape[0], device=tab.device)
+        oh = (cells[None, :] == idx % tab.shape[0]).float()
+        return (lambda: torch.matmul(oh, tab)), 1
+    if case.kernel == "roll_accum":
+        tab, k = ins["tab"], int(ins["sh"][0, 0])
+        return (lambda: torch.roll(tab, k, dims=1)), case.unroll
+    return None
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """float32 matrix products in full float32 inside (no TF32)."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    precision = torch.get_float32_matmul_precision()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.set_float32_matmul_precision(precision)
+
+
+def library_fields(case, ins, res, reps: int, copies: int) -> dict:
+    """The library call's time in CUDA graphs of 20 and 40 calls (at least)
+    beside the kernel's: ``library_ms`` a call, ``library_trip_ms`` a trip's
+    calls, ``x_library`` the kernel's time a trip of one output over it."""
+    lib = library_call(case, ins)
+    if lib is None:
+        return {}
+    fn, calls = lib
+    with full_f32_matmul():
+        ms = graph_ms(fn, max(reps, 20))
+    out = {"library_ms": ms, "library_trip_ms": ms * calls}
+    if "ns_per_trip" in res and ms > 0:
+        out["x_library"] = res["ns_per_trip"] * 1e-6 / copies / (ms * calls)
+    return out
+
+
 def measure_case(case, ins, reps: int, quick: bool, clock_mhz,
                  n_sms: int, copies: int = 1) -> dict:
-    """The probe's slope timing on the card."""
+    """The probe's slope timing on the card, beside the library call's."""
     trips, ms, per_trip = slope_ns_per_trip(case, ins, reps, quick, copies)
     res = {"trips": trips, "ms": ms, "blocks": geometry(case)[2] * copies,
            "sms": sms_used(case, n_sms, copies)}
     res.update(bound_fields(case, ins, per_trip, clock_mhz, n_sms, copies))
+    res.update(library_fields(case, ins, res, reps, copies))
     if case.kernel == "transpose":
-        # The library call in a graph too, and both as back-to-back
-        # launches from the host (where the launch itself is timed).
-        library = lambda: ins["x"].t().contiguous()  # noqa: E731
+        # Both as back-to-back launches from the host too (where the
+        # launch itself is timed).
         res.update(
-            library_ms=graph_ms(library, reps),
             stream_ms=device_ms(lambda: run_case(case, ins, trips[0]), reps),
-            library_stream_ms=device_ms(library, reps))
+            library_stream_ms=device_ms(library_call(case, ins)[0], reps))
     return res
 
 
@@ -289,14 +355,20 @@ def measure_beside(case, ins, libs, reps, quick, clock, n_sms, copies):
                                             n_sms, copies))
         res.update({prefix + k: v for k, v in fields.items()})
     res["speedup"] = res["beside_ns_per_trip"] / res["ns_per_trip"]
+    res.update(library_fields(case, ins, res, reps, copies))
     return res
 
 
 def sass_label_marker(case):
     """(kernel label in the SASS, the opcode a lookup issues once or twice
-    (per column of one pixel and trip for march_top2), how many times)."""
+    (per column of one pixel and trip for march_top2; onehot_dot's unit is
+    its HMMA), how many times)."""
     if case.kernel == "march_top2":
         return "march_top2_kernel", "FMUL", 1
+    if case.kernel == "onehot_dot":
+        return "onehot_dot_kernel", "HMMA", 1
+    if case.kernel == "roll_accum":
+        return f"roll_accum_kernel<{case.unroll}>", "LDS", 1
     args = (probes.FORMS[case.form], probes.AXES[case.axis],
             probes.DTYPES[case.dtype], case.naccs, case.unroll)
     label = "gather_accum_kernel<" + ", ".join(map(str, args)) + ">"
@@ -351,13 +423,16 @@ def issue_fields(case, res, clock_mhz, n_sms: int, copies: int) -> dict:
     per = res.get("sass_fast_per_lookup", res.get("sass_per_lookup"))
     if per is None or clock_mhz is None or "ns_per_trip" not in res:
         return {}
-    # Units of the SASS count a trip: lookups, or columns of a sweep.
-    units = lookups_per_trip(case) * copies
+    # Units of the SASS count a trip, and how many a warp instruction
+    # covers: lookups or columns of a sweep (a thread's each), or HMMA.
+    units, lanes = lookups_per_trip(case) * copies, 32
     if case.kernel == "march_top2":
         units *= case.table[1]
+    elif case.kernel == "onehot_dot":
+        units, lanes = bound_work(case)[0] * copies / MMA_MACS, 1
     hz = sms_used(case, n_sms, copies) * clock_mhz * 1e6
     t = res["ns_per_trip"]
-    out = {"x_issue": t / (units / 32 * per / (4 * hz) * 1e9)}
+    out = {"x_issue": t / (units / lanes * per / (4 * hz) * 1e9)}
     i2f = res.get("sass_i2f_per_lookup", 0)
     if i2f:
         conv = units * i2f / (I2F_PER_CLOCK * hz) * 1e9
@@ -379,7 +454,7 @@ def run(cases, device="cuda", quick=False, check=True, reps=20,
         order="random", blocks=0, out=print, beside=None,
         sass=False) -> list:
     """Check (``check``) and, on the card, time every case (in ``order``;
-    gather_accum, roll_accum and march_top2 with as many copies as make
+    the copied kernels (``COPIED``) with as many copies as make
     about ``blocks`` blocks; ``beside`` another probes.cu timed in turns,
     ``sass`` the hot loops' instructions a lookup); prints one line a case
     through ``out`` and returns the results."""
@@ -420,8 +495,7 @@ def run(cases, device="cuda", quick=False, check=True, reps=20,
             else:
                 res.update(measure_case(case, ins, reps, quick, clock, n_sms,
                                         n))
-            if kernels is not None and case.kernel in ("gather_accum",
-                                                       "march_top2"):
+            if kernels is not None and case.kernel != "transpose":
                 res.update(sass_fields(case, kernels))
                 res.update(issue_fields(case, res, clock, n_sms, n))
         else:
@@ -444,8 +518,8 @@ def main(argv=None) -> int:
     ap.add_argument("--order", default="random", choices=ORDERS,
                     help="the probes' random indices, or lane l's index l")
     ap.add_argument("--blocks", type=int, default=0,
-                    help="copy gather_accum's, roll_accum's and "
-                    "march_top2's output over about this many blocks")
+                    help="copy the output of gather_accum, roll_accum, "
+                    "onehot_dot and march_top2 over about this many blocks")
     ap.add_argument("--beside", type=Path, default=None,
                     help="also build this other probes.cu and time it in "
                     "turns with the package's")

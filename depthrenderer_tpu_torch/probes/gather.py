@@ -11,6 +11,7 @@ float32 steps, so the two are equal bit for bit.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import probes as _p
@@ -183,34 +184,125 @@ def roll_accum(tab, sh, case, trips: int, copies: int = 1):
     return out
 
 
-def onehot_dot_plain(tab, idx, case, trips: int):
+def onehot_dot_plain(tab, idx, case, trips: int, copies: int = 1):
     """Plain twin of ``onehot_dot``: per trip ``onehot((idx + i) % R) @
     tab`` added to the sum. The product is taken in float64, where a
     one-hot row picks its value exactly on any device and under any
-    float32 matmul precision setting."""
+    float32 matmul precision setting; ``copies`` > 1 stacks that many."""
     cells = torch.arange(tab.shape[0], device=tab.device)
     acc = torch.zeros(case.out, dtype=_F32, device=tab.device)
     for i in range(trips):
         oh = (cells[None, :] == (idx + i) % tab.shape[0]).double()
         acc = acc + (oh @ tab.double()).float()
-    return acc
+    return _copied(acc, copies)
 
 
-def onehot_dot(tab, idx, case, trips: int):
+def onehot_dot(tab, idx, case, trips: int, copies: int = 1):
     """Per trip, the one-hot contraction ``onehot((idx + i) % R) @ tab``
     over the R cells of ``tab`` (R, W), summed over the trips -> (P, W)
-    float32. The kernel does the dense multiply-adds; a one-hot row makes
-    every sum exact.
+    float32 (``copies`` > 1: that many identical outputs, each its own
+    blocks). The kernel does the dense multiply-adds on the tensor cores,
+    on the three bf16 parts of the table (:func:`split_bf16x3`); a one-hot
+    row makes every sum exact.
 
     CPU tensors: :func:`onehot_dot_plain`; CUDA tensors: the ``onehot_dot``
     kernel (one launch), or an exception."""
     if _p.on_cpu(tab, idx):
-        return onehot_dot_plain(tab, idx, case, trips)
+        return onehot_dot_plain(tab, idx, case, trips, copies)
     cuda_build.check_cuda({"tab": tab, "idx": idx},
                           {"tab": _F32, "idx": _I32},
                           {"tab": case.table, "idx": case.index})
-    out = torch.empty(case.out, dtype=_F32, device=tab.device)
+    out = torch.empty(_out_shape(case, copies), dtype=_F32, device=tab.device)
     params = _p.ProbeParams(S=case.out[0], L=case.out[1], R=case.table[0],
-                            C=case.table[1], trips=trips)
+                            C=case.table[1], trips=trips, copies=copies)
     _p.launch("onehot_dot", (tab, idx, out), params)
     return out
+
+
+# onehot_dot's split (csrc/probes.cu split_bf16x3, join_bf16x3): below
+# ONEHOT_TINY, mid and lo are taken of the residual scaled by 2**64.
+ONEHOT_TINY = np.float32(2.0**-100)
+ONEHOT_UP, ONEHOT_DOWN = np.float32(2.0**64), np.float32(2.0**-64)
+
+
+def _toward_zero_bf16(x):
+    return (x.view(np.uint32) & np.uint32(0xFFFF0000)).view(np.float32)
+
+
+def split_bf16x3(x):
+    """A float32 array's three bf16 parts as onehot_dot splits its table:
+    ``hi`` is x rounded toward zero to bf16, ``r = x - hi``, scaled by
+    2**64 where ``|hi| < 2**-100``, ``mid`` is r toward zero and ``lo = r -
+    mid``. Each part is float32 holding a bf16 (its low 16 bits 0), a
+    normal one or 0 for every finite normal float32 and +-0 (hi is a bf16
+    subnormal where x is a float32 one); :func:`join_bf16x3` gives x back
+    exactly."""
+    x = np.asarray(x, dtype=np.float32)
+    hi = _toward_zero_bf16(x)
+    r = (x - hi) * _scale(hi, ONEHOT_UP)
+    mid = _toward_zero_bf16(r)
+    return hi, mid, r - mid
+
+
+def join_bf16x3(hi, mid, lo):
+    """``(lo + mid) * (2**-64 if |hi| < 2**-100 else 1) + hi`` in float32,
+    as the kernel joins its three accumulators (x back, but -0.0 as +0.0:
+    the sum it is added to is the same either way)."""
+    return (lo + mid) * _scale(hi, ONEHOT_DOWN) + hi
+
+
+def _scale(hi, factor):
+    return np.where(np.abs(hi) < ONEHOT_TINY, factor, np.float32(1))
+
+
+# Edge inputs of onehot_dot (:func:`onehot_edge_inputs`) and roll_accum
+# (:func:`roll_edge_inputs`).
+ONEHOT_EDGE_CASES = ("full_significand", "tiny", "huge", "signed_zero",
+                     "subnormal")
+ROLL_EDGE_SHIFTS = (0, 1, 127, 128, 255)
+
+
+def full_significands(rng, shape, lo_exp: int, hi_exp: int):
+    """Float32 values with all 24 significant bits in use (the lowest set),
+    random signs, exponents uniform in [lo_exp, hi_exp]."""
+    frac = rng.integers(0, 1 << 22, shape, dtype=np.int64) * 2 + 1
+    sig = (1.0 + frac / 2.0**23) * rng.choice([-1.0, 1.0], shape)
+    return np.ldexp(sig, rng.integers(lo_exp, hi_exp + 1, shape)).astype(
+        np.float32)
+
+
+def onehot_edge_inputs(case, name: str, seed: int = 0) -> dict:
+    """onehot_dot's inputs built for the split's and the fragments'
+    corners: tables of ``full_significand`` values (exponents -20 .. 20),
+    ``tiny`` ones (2**-126 .. 2**-99, across the split's 2**-100 and down
+    to the least normal), ``huge`` ones (2**110 .. 2**120),
+    ``signed_zero`` (+0.0, -0.0 and full significands) or ``subnormal``
+    (float32 subnormals, random signs: their hi part is a bf16 subnormal);
+    every case's first rows start at the last cells, R - 1 .. R - 4, so
+    the trips wrap to cell 0."""
+    rng = np.random.default_rng(seed)
+    shape = case.table
+    if name == "subnormal":
+        bits = rng.integers(1, 1 << 23, shape, dtype=np.int64)
+        bits |= rng.integers(0, 2, shape, dtype=np.int64) << 31
+        tab = bits.astype(np.uint32).view(np.float32)
+    else:
+        exps = {"full_significand": (-20, 20), "tiny": (-126, -99),
+                "huge": (110, 120), "signed_zero": (-20, 20)}[name]
+        tab = full_significands(rng, shape, *exps)
+    if name == "signed_zero":
+        zero = rng.random(shape) < 0.5
+        tab[zero] = np.where(rng.random(zero.sum()) < 0.5, -0.0, 0.0)
+    r = shape[0]
+    idx = rng.integers(0, r, case.index).astype(np.int32)
+    idx[:4, 0] = r - 1 - np.arange(4)
+    return {"tab": tab, "idx": idx}
+
+
+def roll_edge_inputs(case, seed: int = 0) -> dict:
+    """roll_accum's inputs with the edge shifts 0, 1, 127, 128 and 255
+    among its sets (then random ones), on a table of full significands."""
+    rng = np.random.default_rng(seed)
+    sh = rng.integers(0, case.table[1], case.index).astype(np.int32)
+    sh[:len(ROLL_EDGE_SHIFTS), 0] = ROLL_EDGE_SHIFTS
+    return {"tab": full_significands(rng, case.table, -20, 20), "sh": sh}

@@ -14,7 +14,10 @@ equal bit for bit: the kernels take the twins' float32 steps in the same
 order (built with ``--fmad=false``; the baselines' one multiply-add is
 ``fmaf`` there and an exact emulation in the twin). The kernels that copy
 their output (``probes.COPIED``) compute 3 copies, on their own blocks;
-march_top2 also runs on the inputs built for its top 2's corners.
+march_top2 also runs on the inputs built for its top 2's corners,
+onehot_dot on tables built for its bf16 split's corners (where the card's
+tensor cores, not an emulation of them, take the parts) and roll_accum at
+its edge shifts.
 """
 
 import pytest
@@ -45,7 +48,7 @@ def check(case, ins, trips, copies):
 @pytest.mark.parametrize("order", probes.ORDERS)
 @pytest.mark.parametrize("kernel", probes.KERNEL_NAMES)
 def test_kernel_equals_plain_twin(cuda, kernel, order):
-    from depthrenderer_tpu_torch.probes import march
+    from depthrenderer_tpu_torch.probes import gather, march
 
     copies = 3 if kernel in probes.COPIED else 1
     for case in probes.cases_of(kernel):
@@ -53,7 +56,14 @@ def test_kernel_equals_plain_twin(cuda, kernel, order):
                probes.make_inputs(case, seed=3, order=order).items()}
         check(case, ins, probes.check_trips(case), copies)
     if kernel == "march_top2":
-        for name in march.EDGE_CASES:
-            ins = {k: torch.from_numpy(v).to(cuda)
-                   for k, v in march.edge_inputs(name, seed=3).items()}
-            check(case, ins, 5, copies)
+        edges = [march.edge_inputs(n, seed=3) for n in march.EDGE_CASES]
+    elif kernel == "onehot_dot":
+        edges = [gather.onehot_edge_inputs(case, n, seed=3)
+                 for n in gather.ONEHOT_EDGE_CASES]
+    elif kernel == "roll_accum":
+        edges = [gather.roll_edge_inputs(case, seed=3)]
+    else:
+        edges = []
+    for inputs in edges:
+        ins = {k: torch.from_numpy(v).to(cuda) for k, v in inputs.items()}
+        check(case, ins, 5, copies)
