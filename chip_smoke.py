@@ -54,6 +54,28 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    frame and of the tiled frame against it; the scan frame and the control
    on 16 evenly spaced rows against the float64 oracle
    (``ops/raster_reference.rasterize_grid_rows``): shares > 1 and > 8 LSB.
+   ``straddle_control``: the close pose ``translation(dz=-3) @ rotation(20
+   degrees, Y)`` of the same scene, where triangles straddle the camera
+   plane: their count (the phase fails at 0), the host clip's seconds and
+   the clipped soup's triangles, the soup (``raster_soup.rasterize_soup``,
+   texture_z) with its seconds and peak memory against the float64 soup
+   oracle on the card (``raster_reference.rasterize_reference``; limit:
+   <= 3 % of pixels off by more than 8 LSB, >= 30 dB on the rest, the JAX
+   package's bar), the composed control (anchors, window, seconds, each
+   pair launch's rows on sampled tiles against the twin) and the share of
+   pixels its soup takes in the depth merge (> 0); reported: the control
+   and the scan against the clip-aware row oracle on 16 rows, and the scan
+   and tiled frames against the control (both mask the straddlers).
+   ``straddle_control_inside``: the same at mesh density 6 with the camera
+   inside the relief (dz -1.5), where the soup must take pixels.
+   ``mesh_renderer``: ``MeshRenderer`` on the d10 grid, ``run(max_frames=
+   32)`` with the sway advanced in ``on_update``: frames byte-identical to
+   ``render_clip``'s for the same views, ``solve``, ``march`` and ``shade``
+   launched 32 times each (counters set to 0 just before the loop, read
+   just after), frames/s; then a mesh that is not a grid (the d6 mesh's
+   arrays, 8,192 triangles) through the soup for 4 frames: seconds a frame,
+   peak memory, its first frame against ``render_frame_grid_exact`` of the
+   d6 grid (limit: >= 45 dB on the pixels within 8 LSB, <= 1 % beyond).
 7. ``tiers``: the scan's fidelity tiers, ``--quality`` and ``--patch
    --colfix 3``. For each, on sway frame 74 at the configs the render path
    derives (``raster_scan.tier_configs``): pass 1, then (patch) the hole
@@ -163,6 +185,11 @@ MARCH_BANDS, ORACLE_ROWS = 6, 16
 # The control's strips at 1080p/d10, as bench.py renders it; a "flip" is a
 # pixel off by more than 8 LSB, bench.py's winner-flip measure.
 CONTROL_STRIPS = 2
+# The straddling poses (translation dz, yaw in degrees): the close view of
+# the d10 scene, and the camera inside the d6 scene's relief; the
+# MeshRenderer phase's loop frames and soup-route frames (mesh density 6).
+STRADDLE_POSE, INSIDE_POSE = (-3.0, 20.0), (-1.5, 0.0)
+RENDERER_FRAMES, SOUP_FRAMES, SOUP_DENSITY = 32, 4, 6
 # Kernel tiles of every frame that each pair kernel launch of a phase holds
 # against the twin (half the busiest, half evenly spaced).
 PAIR_SAMPLE = 16
@@ -816,6 +843,219 @@ def control_phase(scene, tiled_cfg, dev):
     return control, fid["scan"]
 
 
+def close_mvp(mesh, projection, dz, yaw_deg):
+    """``projection @ translation(dz) @ rotation(yaw, Y) @ model`` on the
+    host, as ``render_clip`` forms its MVPs."""
+    from depthrenderer_tpu_torch import transforms as tt
+    from depthrenderer_tpu_torch.render import clip_mvps
+
+    view = tt.matmul(tt.translation(dz=dz),
+                     tt.rotation(np.deg2rad(yaw_deg), axis=tt.Axis.Y))
+    return clip_mvps(projection, view[None], mesh.transform)[0]
+
+
+def soup_vs_oracle(sv, suv, sidx, mvp, texture, dev):
+    """The clipped straddler soup through ``rasterize_soup`` (texture_z)
+    and the float64 oracle on the card -> ((rgba, z), fields): seconds,
+    peak GiB, covered share, and the oracle bar's numbers (the share of
+    pixels off by more than 8 LSB and the PSNR of the rest)."""
+    from depthrenderer_tpu_torch.ops import common
+    from depthrenderer_tpu_torch.ops import raster_reference as ref
+    from depthrenderer_tpu_torch.ops import raster_soup
+    from depthrenderer_tpu_torch.utils import psnr
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    soup, soup_ms = timed_ms(lambda: raster_soup.rasterize_soup(
+        torch.from_numpy(sv).to(dev), suv, sidx, mvp, texture, WIDTH, HEIGHT,
+        mode="texture_z"))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    oracle, oracle_ms = timed_ms(lambda: ref.rasterize_reference(
+        torch.from_numpy(sv).to(dev), suv, sidx, mvp, texture, WIDTH,
+        HEIGHT))
+    got, want = soup[0].cpu().numpy(), oracle.cpu().numpy()
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32)).max(-1)
+    flips = float((diff > 8).mean())
+    rest = psnr(got[diff <= 8], want[diff <= 8])
+    covered = float((soup[1] < common.FAR_SENTINEL).float().mean())
+    return soup, flips, rest, {
+        "soup_s": f"{soup_ms / 1e3:.2f}", "soup_peak_gib": f"{peak:.2f}",
+        "soup_covered_share": f"{covered:.6f}",
+        "soup_oracle_s": f"{oracle_ms / 1e3:.2f}",
+        "soup_vs_oracle_flip_share": f"{flips:.6f}",
+        "soup_vs_oracle_psnr_db": f"{rest:.2f}"}
+
+
+def straddle_phase(scene, scene6, dev):
+    """Phase 6b: the lossless control at a pose where triangles straddle the
+    camera plane (1080p/d10, ``translation(dz=-3) @ rotation(20 degrees,
+    Y)``): the straddler count (> 0), the host clip's seconds and the
+    clipped soup, the soup against the float64 oracle on the card (>= 30 dB
+    on the pixels within 8 LSB, <= 3 % beyond), the composed control (each
+    pair launch's rows on sampled tiles against the twin) and the share of
+    pixels the soup wins in its merge (> 0); reported: the control against the
+    clip-aware row oracle on 16 rows, and the scan and tiled frames at this
+    pose against the control. Then the d6 mesh with the camera inside the
+    scene's relief (dz=-1.5, no yaw), where the soup must win pixels in the
+    merge, at the same soup-against-oracle bar."""
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
+    from depthrenderer_tpu_torch.ops import raster_pallas as trp
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import tiled_config
+
+    mesh, projection, vgrid, uvgrid, texture = scene
+    n = vgrid.shape[0]
+    mvp = close_mvp(mesh, projection, *STRADDLE_POSE)
+    tris = trg.straddlers(mvp, vgrid)
+    if len(tris) == 0:
+        raise AssertionError("no triangle straddles the camera plane")
+    (sv, suv, sidx), clip_ms = timed_ms(
+        lambda: trg.straddler_soup(tris, vgrid, uvgrid, mvp))
+    _, flips, rest, fields = soup_vs_oracle(sv, suv, sidx, mvp, texture, dev)
+    if flips > 0.03 or rest < 30.0:
+        raise AssertionError(f"soup against the float64 oracle: {flips:.4f} "
+                             f"> 8 LSB, {rest:.2f} dB")
+    t0 = time.perf_counter()
+    with PairCheck() as check:
+        control, stats = trg.render_frame_grid_exact(
+            mvp.to(dev), vgrid, uvgrid, texture, WIDTH, HEIGHT,
+            strips=CONTROL_STRIPS, with_stats=True)
+    control_s = time.perf_counter() - t0 - check.seconds
+    if stats["soup_won"] == 0:
+        raise AssertionError("the soup won no pixel in the control's merge")
+    raw, _ = rs.render_frames_scan(mvp[None], vgrid, uvgrid, texture, WIDTH,
+                                   HEIGHT, rs.suggest_scan_config(n, WIDTH,
+                                                                  HEIGHT))
+    scan = rs.unpack_raw_frames(raw.cpu(), WIDTH, HEIGHT)[0]
+    tiled_cfg = tiled_config(mvp[None].to(dev), vgrid, uvgrid, WIDTH, HEIGHT)
+    tiled = trp.render_frames_pallas(mvp[None].to(dev), vgrid, uvgrid,
+                                     texture, WIDTH, HEIGHT,
+                                     tiled_cfg)[0].cpu().numpy()
+    for name, frame in (("scan", scan), ("tiled", tiled)):
+        p, off, flip = control_fidelity(frame, control)
+        fields.update({f"{name}_psnr_db": f"{p:.2f}",
+                       f"{name}_off_more_share": f"{off:.6f}",
+                       f"{name}_flip_share": f"{flip:.6f}"})
+    cfg = stats["config"]
+    phase("straddle_control", frame="dz-3_yaw20", straddlers=len(tris),
+          soup_triangles=len(sidx) // 3, clip_s=f"{clip_ms / 1e3:.2f}",
+          **fields, control_s=f"{control_s:.2f}",
+          row_anchors=cfg.row_anchors,
+          window=f"{cfg.window_rows}x{cfg.window_cols}",
+          strips=stats["strips"], **check.fields(),
+          soup_won_share=f"{stats['soup_won'] / (WIDTH * HEIGHT):.6f}",
+          **oracle_fidelity(mvp, vgrid, uvgrid, texture, WIDTH, HEIGHT,
+                            {"control": control, "scan": scan}))
+
+    # The merge where the soup reaches the frame: the d6 mesh, the camera
+    # inside the relief.
+    mesh6, projection6, vgrid6, uvgrid6, texture = scene6
+    mvp = close_mvp(mesh6, projection6, *INSIDE_POSE)
+    tris = trg.straddlers(mvp, vgrid6)
+    sv, suv, sidx = trg.straddler_soup(tris, vgrid6, uvgrid6, mvp)
+    _, flips, rest, fields = soup_vs_oracle(sv, suv, sidx, mvp, texture, dev)
+    if flips > 0.03 or rest < 30.0:
+        raise AssertionError(f"inside: soup against the float64 oracle: "
+                             f"{flips:.4f} > 8 LSB, {rest:.2f} dB")
+    with PairCheck() as check:
+        control, stats = trg.render_frame_grid_exact(
+            mvp.to(dev), vgrid6, uvgrid6, texture, WIDTH, HEIGHT,
+            strips=CONTROL_STRIPS, with_stats=True)
+    won = stats["soup_won"] / (WIDTH * HEIGHT)
+    if stats["soup_won"] == 0:
+        raise AssertionError("the soup won no pixel of the inside pose")
+    phase("straddle_control_inside", frame="d6_dz-1.5_yaw0",
+          straddlers=len(tris), soup_triangles=len(sidx) // 3, **fields,
+          row_anchors=stats["config"].row_anchors, strips=stats["strips"],
+          **check.fields(), soup_won_share=f"{won:.6f}",
+          **oracle_fidelity(mvp, vgrid6, uvgrid6, texture, WIDTH, HEIGHT,
+                            {"control": control}))
+
+
+def mesh_renderer_phase(scene, scene6, dev):
+    """Phase 6c: ``MeshRenderer`` (the reference's frame loop, the API-parity
+    path). On the d10 grid, ``run(max_frames=32)`` with the sway advanced in
+    ``on_update`` as the reference's ``__main__`` does: frames byte-identical
+    to ``render_clip``'s for the same views, ``solve``, ``march`` and
+    ``shade`` launched 32 times each (counters set to 0 just before the
+    loop, read just after), frames/s. A mesh that is not a grid (the d6
+    mesh's arrays) draws 4 frames through the soup; its first against
+    ``render_frame_grid_exact`` of the d6 grid at the same MVP (>= 45 dB on
+    the pixels within 8 LSB, <= 1 % beyond)."""
+    from depthrenderer_tpu_torch import animation, transforms
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import (MeshRenderer, clip_mvps,
+                                                render_clip)
+    from depthrenderer_tpu_torch.scene import Camera, Mesh
+    from depthrenderer_tpu_torch.utils import psnr
+
+    mesh = scene[0]
+    camera = Camera((WIDTH, HEIGHT), fov_y=18.0)
+    views = clip_views(RENDERER_FRAMES)
+    want = render_clip(mesh, camera.projection, views, WIDTH, HEIGHT,
+                       device="cuda")
+    renderer = MeshRenderer(camera=camera, fps=60.0, device="cuda")
+    renderer.mesh = mesh
+    sway, cam_pos, frames = animation.default_sway(), \
+        transforms.translation(dz=-10.0), []
+
+    def on_update(delta):
+        frames.append(renderer.get_frame())
+        sway.update(delta)
+        camera.view = transforms.matmul(cam_pos, sway.transform)
+
+    sway.update(1 / 60.0)
+    camera.view = transforms.matmul(cam_pos, sway.transform)
+    renderer.on_update = on_update
+    rs.reset_launch_counts()
+    t0 = time.perf_counter()
+    renderer.run(max_frames=RENDERER_FRAMES)
+    seconds = time.perf_counter() - t0
+    launches = dict(rs.LAUNCHES)
+    if len(frames) != RENDERER_FRAMES or any(
+            not np.array_equal(f, w) for f, w in zip(frames, want)):
+        raise AssertionError("MeshRenderer frames differ from render_clip's")
+    if launches != {k: RENDERER_FRAMES for k in launches}:
+        raise AssertionError(f"MeshRenderer launches {launches}, expected "
+                             f"{RENDERER_FRAMES} each")
+
+    mesh6, _, vgrid6, uvgrid6, texture = scene6
+    soup_mesh = Mesh(mesh6.texture, mesh6.vertices, mesh6.texture_coordinates,
+                     mesh6.indices)
+    renderer = MeshRenderer(camera=camera, device="cuda")
+    renderer.mesh = soup_mesh
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    soup, views = [], clip_views(SOUP_FRAMES)
+    for view in views:
+        camera.view = view
+        renderer.draw()
+        soup.append(renderer.get_frame())
+    soup_s = (time.perf_counter() - t0) / SOUP_FRAMES
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    mvp = clip_mvps(camera.projection, views[:1], mesh6.transform)[0]
+    control = trg.render_frame_grid_exact(mvp.to(dev), vgrid6, uvgrid6,
+                                          texture, WIDTH, HEIGHT,
+                                          strips=CONTROL_STRIPS)
+    diff = np.abs(soup[0].astype(np.int32) - control.astype(np.int32)).max(-1)
+    flips = float((diff > 8).mean())
+    rest = psnr(soup[0][diff <= 8], control[diff <= 8])
+    covered = float((soup[0][..., :3].max(-1) > 0).mean())
+    if renderer.impl != "soup" or flips > 0.01 or rest < 45.0 or covered < 0.3:
+        raise AssertionError(f"soup route: impl {renderer.impl}, {flips:.4f} "
+                             f"> 8 LSB, {rest:.2f} dB, covered {covered:.3f}")
+    phase("mesh_renderer", frames=RENDERER_FRAMES, impl="scan",
+          launches=json.dumps(launches), frames_equal_render_clip=True,
+          loop_fps=f"{RENDERER_FRAMES / seconds:.2f}",
+          soup_triangles=soup_mesh.num_triangles, soup_frames=SOUP_FRAMES,
+          soup_s_per_frame=f"{soup_s:.2f}", soup_peak_gib=f"{peak:.2f}",
+          soup_vs_control_psnr_db=f"{rest:.2f}",
+          soup_vs_control_flip_share=f"{flips:.6f}",
+          soup_covered_share=f"{covered:.4f}")
+
+
 def timed_ms(fn):
     """(fn(), wall milliseconds), the device synchronised around it."""
     torch.cuda.synchronize()
@@ -1405,6 +1645,13 @@ def main(argv=None):
         t0 = time.perf_counter()
         control, scan_fid = control_phase(scene, tiled_cfg, dev)
         seconds["control"] = time.perf_counter() - t0
+        scene6 = smoke_scene(colour, depth, dev, density=SOUP_DENSITY)
+        t0 = time.perf_counter()
+        straddle_phase(scene, scene6, dev)
+        seconds["straddle_control"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mesh_renderer_phase(scene, scene6, dev)
+        seconds["mesh_renderer"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         tiers_phase(colour, depth, scene, control, scan_fid, dev, tmp)
         seconds["tiers"] = time.perf_counter() - t0

@@ -15,4 +15,16 @@ from . import animation, io, meshgen, transforms, utils  # noqa: F401
 from .scene import Camera, Mesh, Texture  # noqa: F401
 from .transforms import Axis  # noqa: F401
 
+
+
+def __getattr__(name):
+    # The renderers load the ops (and with them the kernels' wrappers) on
+    # first use, as the JAX package loads its render module.
+    if name in ("MeshRenderer", "render_clip"):
+        from . import render
+
+        return getattr(render, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __version__ = "0.1.0"

@@ -9,6 +9,10 @@ The float32 expressions follow the JAX package's order of operations.
 The k-th rendered frame (k = 0, 1, ...) sees ``elapsed = (k+1) / fps``,
 because the reference updates the animation before reading it
 (``__main__.py:143-148``).
+
+The reference's stateful API (``update``, ``reset``, ``transform``,
+``apply``; ``animation.py:6-27``) wraps the same functions: ``transform``
+is ``transform_at(elapsed)`` on the animation's ``device``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ def frame_times(num_frames: int, fps: float, device=None):
 class Animation:
     """Identity transform at all times."""
 
+    elapsed = 0.0
+    device = None   # where ``transform`` is computed
+
     def transform_at(self, t):
         """(T, 4, 4) transforms for a (T,) float32 tensor of times."""
         return identity(t.device).expand(t.shape + (4, 4))
@@ -47,6 +54,25 @@ class Animation:
         else:
             times = torch.tensor(np.asarray(times), dtype=_F32, device=device)
         return self.transform_at(times)
+
+    # -- the reference's stateful API ---------------------------------------
+
+    def update(self, delta):
+        self.elapsed += delta
+
+    def reset(self):
+        self.elapsed = 0.0
+
+    @property
+    def transform(self):
+        """The (4, 4) transform at the accumulated ``elapsed`` time."""
+        t = torch.full((1,), self.elapsed, dtype=_F32, device=self.device)
+        return self.transform_at(t)[0]
+
+    def apply(self, other):
+        """``other @ transform`` (reference ``animation.py:18-19``)."""
+        return matmul(torch.as_tensor(other, dtype=_F32,
+                                      device=self.device), self.transform)
 
 
 class RotateAxisBounce(Animation):
@@ -111,6 +137,18 @@ class Compose(Animation):
         for animation in self.animations:
             out = matmul(out, animation.transform_at(t))
         return out
+
+    def update(self, delta):
+        """Advance this animation and every child (reference
+        ``animation.py:98-106``)."""
+        super().update(delta)
+        for animation in self.animations:
+            animation.update(delta)
+
+    def reset(self):
+        super().reset()
+        for animation in self.animations:
+            animation.reset()
 
 
 def default_sway(animation_length_secs: float = 5.0):

@@ -133,7 +133,7 @@ def check_ported(args):
     unported = []
     if (args.impl in ("auto", "scan") and args.quality
             and args.mode == "wireframe"):
-        unported.append(f"--mode wireframe with --quality ({where} item 5; "
+        unported.append(f"--mode wireframe with --quality ({where} item 1; "
                         "the single scan pass shades it)")
     if args.container == "mp4":
         unported.append(f"--container mp4 ({where} 'MP4 output')")

@@ -111,3 +111,9 @@ def grid_indices(density: int, device=None):
     d = b + 1
     return torch.stack([a, b, c, c, b, d], dim=-1).reshape(-1)
 
+
+def grid_depth(depth_map, density: int, device=None):
+    """Just the displaced (n, n) z grid, rounded as :func:`grid_mesh`
+    rounds it: the fast path for re-skinning a grid with a new depth map
+    (reference ``Mesh.from_copy_with_new_depth``, ``render.py:547-565``)."""
+    return _sample_depth(depth_map, grid_vertex_count(density), device)[0]

@@ -89,6 +89,16 @@ def project_vertices(vertices, mvp, width, height):
     return sx, sy, clip[2] * inv_w, inv_w
 
 
+def pixel_centers(width, height, device=None):
+    """Window-coordinate centres of every image pixel, top-down row order ->
+    ``(qx, qy)``, each (height, width) float32."""
+    cols = torch.arange(width, dtype=_F32, device=device) + 0.5
+    rows_win = height - (torch.arange(height, dtype=_F32, device=device)
+                         + 0.5)
+    return (cols[None, :].expand(height, width),
+            rows_win[:, None].expand(height, width))
+
+
 def project_vertices_tiled(vertices, mvp, width, height):
     """Project model-space vertices to window coordinates, rounded as the
     JAX package's tiled and grid paths round under ``jit`` on XLA's CPU

@@ -26,7 +26,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from . import common, tiled
+from . import common, raster_reference, tiled
+from .raster_soup import rasterize_soup
 from .common import RasterConfig
 
 _F32 = torch.float32
@@ -90,19 +91,33 @@ def _padded_grid(mvp, vertex_grid, uv_grid, width, height,
 
 
 def _tile_bounds(xs, ys, config: RasterConfig, width, height, num_tile_rows,
-                 num_tile_cols):
+                 num_tile_cols, ws=None):
     """Exact per-tile candidate cell bounds (r0, r1, c0, c1) from patch
     bboxes.
 
     :param xs, ys: (R, C) projected x/y grids, padded to patch multiples.
+    :param ws: the (R, C) 1/w grid: a corner with 1/w <= 0 (behind the
+        camera) is left out of its cell's box. Every triangle with such a
+        corner is masked, and its sign-flipped projection would otherwise
+        stretch the windows of every tile its patch seems to reach. With no
+        corner behind the camera the bounds are the JAX package's.
     :return: four (tiles_r, tiles_c) int32 tensors in cell units.
     """
     ps = config.patch_size
     cells_r, cells_c = xs.shape[0] - 1, xs.shape[1] - 1
 
+    def corners(g):
+        return torch.stack([g[:-1, :-1], g[1:, :-1], g[:-1, 1:], g[1:, 1:]])
+
+    front = None if ws is None else corners(ws) > 0
+
     def cell_minmax(g):
-        c = torch.stack([g[:-1, :-1], g[1:, :-1], g[:-1, 1:], g[1:, 1:]])
-        return c.amin(0), c.amax(0)
+        c = corners(g)
+        if front is None:
+            return c.amin(0), c.amax(0)
+        inf = float("inf")
+        return (torch.where(front, c, inf).amin(0),
+                torch.where(front, c, -inf).amax(0))
 
     xmin, xmax = cell_minmax(xs)
     ymin, ymax = cell_minmax(ys)
@@ -152,8 +167,9 @@ def _tile_bounds(xs, ys, config: RasterConfig, width, height, num_tile_rows,
 
 
 def _tile_windows(xs, ys, config: RasterConfig, width, height, num_tile_rows,
-                  num_tile_cols):
-    """Per-tile candidate-window starts from exact projected patch bboxes.
+                  num_tile_cols, ws=None):
+    """Per-tile candidate-window starts from exact projected patch bboxes
+    (``ws``: see :func:`_tile_bounds`).
 
     :return: ``(wr, wc, overflow)``: (num_tiles, row_anchors) window row
         starts, (num_tiles,) window column starts, and (num_tiles,) flags of
@@ -161,7 +177,7 @@ def _tile_windows(xs, ys, config: RasterConfig, width, height, num_tile_rows,
     """
     cells_r, cells_c = xs.shape[0] - 1, xs.shape[1] - 1
     r0, r1, c0, c1 = _tile_bounds(xs, ys, config, width, height,
-                                  num_tile_rows, num_tile_cols)
+                                  num_tile_rows, num_tile_cols, ws)
     WR, WC = config.window_rows, config.window_cols
     wr_cap = max(cells_r - WR, 0)
     wc_cap = max(cells_c - WC, 0)
@@ -182,10 +198,11 @@ def _tile_windows(xs, ys, config: RasterConfig, width, height, num_tile_rows,
     return wr.to(_I32), wc.reshape(-1).to(_I32), overflow.reshape(-1)
 
 
-def _tile_spans(xs, ys, config, width, height, num_tile_rows, num_tile_cols):
+def _tile_spans(xs, ys, config, width, height, num_tile_rows, num_tile_cols,
+                ws=None):
     """Per-tile candidate-cell spans (rows, cols) for one view."""
     r0, r1, c0, c1 = _tile_bounds(xs, ys, config, width, height,
-                                  num_tile_rows, num_tile_cols)
+                                  num_tile_rows, num_tile_cols, ws)
     return r1 - r0, c1 - c0
 
 
@@ -210,11 +227,10 @@ def measured_config(mvps, vertex_grid, width, height, sample: int = 3,
 
     r_spans, c_spans = [], []
     for k in take:
-        sx, sy, _, _ = common.project_vertices_tiled(vertex_grid, mvps[k],
-                                                     width, height)
-        sx = _pad_edge(sx, cells + 1, cells + 1)
-        sy = _pad_edge(sy, cells + 1, cells + 1)
-        rs, cs = _tile_spans(sx, sy, probe, width, height, ntr, ntc)
+        sx, sy, _, iw = (_pad_edge(g, cells + 1, cells + 1) for g in
+                         common.project_vertices_tiled(vertex_grid, mvps[k],
+                                                       width, height))
+        rs, cs = _tile_spans(sx, sy, probe, width, height, ntr, ntc, iw)
         r_spans.append(rs.cpu().numpy().ravel())
         c_spans.append(cs.cpu().numpy().ravel())
 
@@ -248,11 +264,11 @@ def binning_overflow_tiles(mvps, vertex_grid, uv_grid, width, height,
     ntc = -(-width // config.tile_w)
     counts = []
     for mvp in mvps:
-        sx, sy, _, _ = common.project_vertices_tiled(vertex_grid, mvp, width,
-                                                     height)
-        r0, r1, c0, c1 = _tile_bounds(_pad_edge(sx, cells_r + 1, cells_c + 1),
-                                      _pad_edge(sy, cells_r + 1, cells_c + 1),
-                                      config, width, height, ntr, ntc)
+        sx, sy, _, iw = (_pad_edge(g, cells_r + 1, cells_c + 1) for g in
+                         common.project_vertices_tiled(vertex_grid, mvp,
+                                                       width, height))
+        r0, r1, c0, c1 = _tile_bounds(sx, sy, config, width, height, ntr,
+                                      ntc, iw)
         over = (((r1 - r0) > config.window_rows * config.row_anchors)
                 | ((c1 - c0) > config.window_cols))
         counts.append(over.sum().to(_I32))
@@ -390,7 +406,7 @@ def _grid_group(mvps, vertex_grid, uv_grid, width, height,
         for f in range(batch.start, batch.stop):
             vg = vgs[:, f - batch.start]
             wr, wc, _ = _tile_windows(vg[_SX], vg[_SY], config, width,
-                                      height, ntr, ntc)
+                                      height, ntr, ntc, vg[_INVW])
             origin = 2 * (wr.long() * (vg.shape[2] - 1) + wc.long()[:, None])
             origins.append(origin.reshape(-1) + f * tables[0][f].numel())
     rel = _grid_rel(config, vgs.shape[-1] - 1, vgs.device).to(_I32)
@@ -424,19 +440,17 @@ def render_frames_grid(mvps, vertex_grid, uv_grid, texture, width, height,
                        config: RasterConfig = RasterConfig(),
                        mode: str = "texture", frame_batch: int = 16):
     """Render frames through the grid route -> (T, height, width, 4) uint8 on
-    the device of ``vertex_grid``.
+    the device of ``vertex_grid``; in ``texture_z`` mode also the (T,
+    height, width) float32 NDC depth of each pixel (``FAR_SENTINEL`` where
+    nothing covers it), the control's depth-merge key.
 
     Frames go in groups of ``frame_batch``, clamped so a group's plane
     tables stay within ``tiled.COEFF_BUDGET``: one prep, one pair
     kernel launch and one shade per group.
 
     :param texture: (Ht, Wt, 4) texels (0..255).
-    :param mode: ``texture``, ``debug_z`` or ``wireframe``.
+    :param mode: ``texture``, ``debug_z``, ``wireframe`` or ``texture_z``.
     """
-    if mode == "texture_z":
-        raise NotImplementedError(
-            "grid mode 'texture_z' waits for the soup port (ROADMAP.md "
-            "queue 1 item 6, 'ops/raster_soup.py')")
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device
     uv_grid = torch.as_tensor(uv_grid, dtype=_F32, device=dev)
@@ -447,38 +461,70 @@ def render_frames_grid(mvps, vertex_grid, uv_grid, texture, width, height,
                      frame_batch)
     ntiles = (-(-height // config.tile_h)) * (-(-width // config.tile_w))
     out = torch.empty((T, height, width, 4), dtype=torch.uint8, device=dev)
+    zout = (torch.empty((T, height, width), dtype=_F32, device=dev)
+            if mode == "texture_z" else None)
     for s in range(0, T, fb):
         planes = _grid_group(mvps[s:s + fb], vertex_grid, uv_grid, width,
                              height, config)
         tiles = tiled.raster_pairs(*planes, height, config)
-        out[s:s + fb] = tiled.shade_tiles(
+        shaded = tiled.shade_tiles(
             tiles.reshape((-1, ntiles) + tiles.shape[1:]), texture, width,
             height, config, mode)
-    return out
+        if zout is None:
+            out[s:s + fb] = shaded
+        else:
+            out[s:s + fb], zout[s:s + fb] = shaded
+    return out if zout is None else (out, zout)
 
 
 def render_frame_grid(mvp, vertex_grid, uv_grid, texture, width, height,
                       config: RasterConfig = RasterConfig(),
                       mode: str = "texture"):
     """One frame of a grid mesh through the grid route -> (height, width, 4)
-    uint8."""
-    return render_frames_grid(torch.as_tensor(mvp, dtype=_F32)[None],
-                              vertex_grid, uv_grid, texture, width, height,
-                              config, mode, frame_batch=1)[0]
+    uint8 (and its (height, width) depth in ``texture_z`` mode)."""
+    out = render_frames_grid(torch.as_tensor(mvp, dtype=_F32)[None],
+                             vertex_grid, uv_grid, texture, width, height,
+                             config, mode, frame_batch=1)
+    if mode == "texture_z":
+        return out[0][0], out[1][0]
+    return out[0]
+
+
+def straddlers(mvp, vertex_grid):
+    """The grid's triangles with corners on both sides of the camera plane
+    (``clip_w <= 0`` and ``> 0``), in host float64 -> (k, 3) int64 vertex
+    ids (row-major grid vertices), in the grid routes' triangle order."""
+    mvp64 = raster_reference.host(mvp, np.float64)
+    v = raster_reference.host(vertex_grid, np.float64)
+    n_r, n_c = v.shape[:2]
+    w = v.reshape(-1, 3) @ mvp64[3, :3] + mvp64[3, 3]   # clip w
+    ids = np.arange(n_r * n_c, dtype=np.int64).reshape(n_r, n_c)
+    a, b = ids[:-1, :-1], ids[1:, :-1]
+    c, d = ids[:-1, 1:], ids[1:, 1:]
+    tris = np.stack([np.stack([a, b, c], -1), np.stack([c, b, d], -1)],
+                    axis=2).reshape(-1, 3)
+    wt = w[tris]
+    return tris[(wt <= 0).any(axis=1) & (wt > 0).any(axis=1)]
 
 
 def straddling_triangles(mvp, vertex_grid) -> int:
     """Count the grid's triangles with corners on both sides of the camera
-    plane (``clip_w <= 0`` and ``> 0``), in host float64."""
-    mvp64 = torch.as_tensor(mvp).cpu().numpy().astype(np.float64)
-    v = torch.as_tensor(vertex_grid).cpu().numpy().astype(np.float64)
-    w = v @ mvp64[3, :3] + mvp64[3, 3]   # (n_r, n_c) clip w
-    a, b, c, d = w[:-1, :-1], w[1:, :-1], w[:-1, 1:], w[1:, 1:]
-    count = 0
-    for t in ((a, b, c), (c, b, d)):
-        wt = np.stack(t)
-        count += int(((wt <= 0).any(0) & (wt > 0).any(0)).sum())
-    return count
+    plane, in host float64."""
+    return len(straddlers(mvp, vertex_grid))
+
+
+def straddler_soup(tris, vertex_grid, uv_grid, mvp):
+    """Straddling triangles ``tris`` (:func:`straddlers`) as a soup, clipped
+    at GL's near plane (``raster_reference.clip_gl_near``) -> ``(vertices
+    (V, 3) float32, uvs (V, 2), indices (3 k,))`` on the host. The soup
+    holds only the vertices the triangles use: a vertex's projection does
+    not depend on the others."""
+    used, local = np.unique(tris, return_inverse=True)
+    v = raster_reference.host(vertex_grid, np.float32).reshape(-1, 3)[used]
+    uv = raster_reference.host(uv_grid, np.float32).reshape(-1, 2)[used]
+    v2, uv2, idx2 = raster_reference.clip_gl_near(
+        v, uv, local.reshape(-1), mvp)
+    return v2.astype(np.float32), uv2, idx2
 
 
 def render_frame_grid_exact(mvp, vertex_grid, uv_grid, texture, width,
@@ -493,27 +539,27 @@ def render_frame_grid_exact(mvp, vertex_grid, uv_grid, texture, width,
       composed into the MVP), bounding the per-call plane tables.
     * **Row anchors**: raised until :func:`binning_overflow_tiles` proves that
       no tile exceeds its anchored windows, so no candidate is dropped.
-    * **Near-plane straddlers**: the JAX control composes the triangles that
-      straddle the camera plane from an exactly clipped soup render. That
-      needs the soup port (ROADMAP.md queue 1 item 6); until then a pose with
-      any straddling triangle raises ``NotImplementedError`` instead of
-      rendering without them.
+    * **Near-plane straddlers**: the grid route masks the triangles with
+      corners on both sides of the camera plane. In ``texture`` mode they
+      are clipped exactly in host float64 and rendered through the soup
+      (``raster_soup.rasterize_soup(mode="texture_z")``), and the strips,
+      rendered in ``texture_z`` (the strip remap changes only row 1 of the
+      MVP, so every strip's NDC z is the same key), take the soup's pixel
+      where its depth is strictly less: GL's depth test across one draw
+      call, the grid winning a tie.
 
     :return: (height, width, 4) uint8 numpy frame, and with ``with_stats``
-        ``{"config": the RasterConfig it settled on, "strips": strips}``.
+        ``{"config": the RasterConfig it settled on, "strips": strips,
+        "straddlers": straddling triangles, "soup_triangles": the clipped
+        soup's triangles, "soup_won": pixels the soup took}``.
     """
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
-    straddle = straddling_triangles(mvp, vertex_grid)
-    if straddle:
-        raise NotImplementedError(
-            f"render_frame_grid_exact: {straddle} triangle(s) straddle the "
-            "camera plane; the exactly clipped straddler soup needs the soup "
-            "port (ROADMAP.md queue 1 item 6, 'ops/raster_soup.py')")
+    dev = vertex_grid.device
     strips = max(strips, 1)
     while height % strips:   # equal strip heights
         strips += 1
     hs = height // strips
-    mvp64 = np.asarray(torch.as_tensor(mvp).cpu().numpy(), np.float64)
+    mvp64 = raster_reference.host(mvp, np.float64)
     mvps_k = []
     for k in range(strips):
         r1 = (k + 1) * hs
@@ -521,7 +567,7 @@ def render_frame_grid_exact(mvp, vertex_grid, uv_grid, texture, width,
         S[1, 1] = height / hs
         S[1, 3] = (2.0 * r1 - height) / hs - 1.0
         mvps_k.append((S @ mvp64).astype(np.float32))
-    mvps_k = torch.from_numpy(np.stack(mvps_k)).to(vertex_grid.device)
+    mvps_k = torch.from_numpy(np.stack(mvps_k)).to(dev)
 
     anchors = 1
     while True:
@@ -539,10 +585,29 @@ def render_frame_grid_exact(mvp, vertex_grid, uv_grid, texture, width,
                 f"window?); raise max_anchors or strips")
         anchors = min(anchors * 2, max_anchors)
 
+    tris = straddlers(mvp, vertex_grid)
+    soup, nsoup = None, 0
+    if mode == "texture" and len(tris):
+        sv, suv, sidx = straddler_soup(tris, vertex_grid, uv_grid, mvp)
+        nsoup = len(sidx) // 3
+        soup = rasterize_soup(torch.from_numpy(sv).to(dev), suv, sidx,
+                              torch.as_tensor(mvp, dtype=_F32), texture,
+                              width, height, mode="texture_z",
+                              edge_cull_threshold=edge_cull_threshold)
+    gmode = "texture_z" if soup is not None else mode
     parts = [render_frame_grid(mvps_k[k], vertex_grid, uv_grid, texture,
-                               width, hs, cfg, mode).cpu().numpy()
-             for k in range(strips)]
-    frame = np.concatenate(parts, axis=0)
+                               width, hs, cfg, gmode) for k in range(strips)]
+    won = 0
+    if soup is None:
+        frame = torch.cat(parts, 0)
+    else:
+        frame = torch.cat([p[0] for p in parts], 0)
+        take = soup[1] < torch.cat([p[1] for p in parts], 0)
+        frame = torch.where(take[..., None], soup[0], frame)
+        won = int(take.sum())
+    frame = frame.cpu().numpy()
     if with_stats:
-        return frame, {"config": cfg, "strips": strips}
+        return frame, {"config": cfg, "strips": strips,
+                       "straddlers": len(tris), "soup_triangles": nsoup,
+                       "soup_won": won}
     return frame

@@ -193,7 +193,7 @@ def _tile_passes(vg, config: RasterConfig, width, height):
     cr, cc = vg.shape[1] - 1, vg.shape[2] - 1
     r0, r1, c0, c1 = raster_grid._tile_bounds(
         vg[raster_grid._SX], vg[raster_grid._SY], config, width, height, ntr,
-        ntc)
+        ntc, vg[raster_grid._INVW])
     r0, r1, c0, c1 = (a.reshape(-1) for a in (r0, r1, c0, c1))
     wc_ = torch.clamp(torch.div(c0 + c1 - WC, 2, rounding_mode="floor"), 0,
                       max(cc - WC, 0))

@@ -270,8 +270,8 @@ def check_supported(config: ScanConfig):
     """Raise ``NotImplementedError`` for a config the port does not run."""
     if config.mxu_march:
         raise NotImplementedError(
-            "scan config mxu_march is not ported (ROADMAP.md queue 1 item 8: "
-            "measured slower on the TPU, not needed on a GPU)")
+            "scan config mxu_march is not ported (ROADMAP.md queue 1 item 4, "
+            "'Not ported': measured slower on the TPU, not needed on a GPU)")
 
 
 # ---------------------------------------------------------------------------
@@ -1642,7 +1642,8 @@ def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
         raise NotImplementedError(
             "the quality tier's wireframe mode (an attrs merge carrying the "
             "winner's least barycentric weight) is not ported yet "
-            "(ROADMAP.md queue 1 item 5)")
+            "(ROADMAP.md queue 1 item 1, 'The rest of the CLI and I/O "
+            "surface')")
     check_uv_grid(uv_grid)
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device

@@ -355,12 +355,19 @@ def raster_pairs(cov, attr, origin, rel, px0, py0, jlo, jhi, height,
 
 def shade_tiles(tiles, texture, width, height, config: RasterConfig,
                 mode: str):
-    """(F, ntiles, P, 8) merged tile rows -> (F, height, width, 4) uint8."""
+    """(F, ntiles, P, 8) merged tile rows -> (F, height, width, 4) uint8;
+    in ``texture_z`` mode also the (F, height, width) float32 NDC depth of
+    each pixel's winner (``FAR_SENTINEL`` where nothing covers it)."""
     th, tw = config.tile_h, config.tile_w
     ntr, ntc = -(-height // th), -(-width // tw)
     F = tiles.shape[0]
     full = (tiles[..., :6].reshape(F, ntr, ntc, th, tw, 6)
             .permute(0, 1, 3, 2, 4, 5)
             .reshape(F, ntr * th, ntc * tw, 6)[:, :height, :width])
-    return common.shade(full[..., 3] > 0.5, full[..., 0], full[..., 1],
-                        full[..., 2], texture, mode, min_lam=full[..., 5])
+    rgba = common.shade(full[..., 3] > 0.5, full[..., 0], full[..., 1],
+                        full[..., 2], texture,
+                        "texture" if mode == "texture_z" else mode,
+                        min_lam=full[..., 5])
+    if mode == "texture_z":
+        return rgba, full[..., 4]
+    return rgba

@@ -1,26 +1,36 @@
-"""Clip rendering: the whole camera path as MVP batches through a rasteriser.
+"""Renderers: the headless replacement for the reference's GLFW/GL frame
+loop (``DepthRenderer/render.py:568-861``). Counterpart of
+``depthrenderer_tpu/render.py``.
 
-Counterpart of ``depthrenderer_tpu/render.py``'s :func:`render_clip`: the
-column-crossing scan (the default, with its fidelity tiers ``quality`` and
-``patch``), the tiled Pallas route and the tiled grid route (``MeshRenderer``
-is not ported yet). Frames render in groups on the
-current CUDA stream; each group's frames are copied into a pinned host buffer
-with ``non_blocking`` copies and a CUDA event, and the host hands group k to
-``on_frames`` while group k+1 renders.
+* :func:`render_clip` is the throughput path: the whole camera path as MVP
+  batches through the column-crossing scan (the default, with its fidelity
+  tiers ``quality`` and ``patch``), the tiled Pallas route or the tiled grid
+  route. Frames render in groups on the current CUDA stream; each group's
+  frames are copied into a pinned host buffer with ``non_blocking`` copies
+  and a CUDA event, and the host hands group k to ``on_frames`` while group
+  k+1 renders.
+* :class:`MeshRenderer` is the API-parity path: the reference's
+  callback-driven frame loop (``on_update``, ``on_exit``, ``get_frame``,
+  pause, shader switching), one frame a draw through the same functions,
+  read back before the next. A mesh that is not a grid renders through the
+  soup (``ops/raster_soup``). Deliberate differences from the reference,
+  as in the JAX package: the framebuffer is the requested size, and
+  ``get_frame`` returns the frame just drawn (no PBO latency).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Callable, Optional
 
 import numpy as np
 import torch
 
-from .ops import raster_grid, raster_pallas, raster_scan
-from .ops.common import RasterConfig
-from .scene import Mesh
+from .ops import raster_grid, raster_pallas, raster_scan, raster_soup
+from .ops.common import RasterConfig, suggest_config
+from .scene import Camera, Mesh
 from .transforms import matmul
-from .utils import log
+from .utils import FrameTimer, log
 
 IMPLS = ("scan", "pallas", "grid")
 
@@ -53,6 +63,13 @@ def _grid_arrays(mesh: Mesh):
         raise ValueError("grid mesh vertex count must be square")
     return (mesh.vertices.reshape(n, n, 3),
             mesh.texture_coordinates.reshape(n, n, 2), n)
+
+
+def _pin_matmul_precision():
+    """Full float32 products on the card (no TF32), as the JAX package's
+    HIGHEST precision."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def clip_mvps(projection, view_batch, model):
@@ -125,9 +142,9 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     """
     device = resolve_device(device)
     if not mesh.is_grid:
-        raise ValueError("render_clip requires a grid mesh")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+        raise ValueError("render_clip requires a grid mesh (MeshRenderer "
+                         "renders any mesh)")
+    _pin_matmul_precision()
     vgrid, uvgrid, n = _grid_arrays(mesh)
     if impl in ("auto", "scan"):
         impl = _auto_impl(n, width, height)
@@ -229,3 +246,205 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     if on_frames is None:
         return np.concatenate(collected, axis=0)
     return total
+
+
+class MeshRenderer:
+    """Headless per-frame renderer with the reference's callback-driven
+    loop.
+
+    :param camera: the :class:`Camera` (its ``window_size`` is the default
+        framebuffer size).
+    :param width, height: framebuffer size override.
+    :param fps: target frame rate; with ``fixed_time_step`` (default)
+        ``on_update`` always receives ``1 / fps``, the reference's
+        deterministic-output mode (``render.py:750-755``).
+    :param unlimited_frame_works: True: frames as fast as they render
+        (reference ``render.py:593``); False: the loop sleeps to pace real
+        time.
+    :param config: a :class:`RasterConfig` (tiled routes) or
+        ``raster_scan.ScanConfig`` (scan); None: derived per mesh
+        (``suggest_scan_config`` for the scan, ``suggest_config`` for the
+        tiled routes) and again on every mesh swap.
+    :param mode: ``texture``, ``debug_z`` or ``wireframe`` (the reference's
+        1/2/3 keys, ``render.py:845-859``).
+    :param impl: ``auto``, ``scan``, ``pallas``, ``grid`` or ``soup``. On a
+        grid mesh ``auto`` picks the scan through d12 and the tiled Pallas
+        route past it (:func:`_auto_impl`); a mesh that is not a grid
+        always renders through the soup.
+    :param device: ``"cuda"`` (default; raises without a card) or
+        ``"cpu"``.
+    """
+
+    def __init__(self, camera: Optional[Camera] = None, width=None,
+                 height=None, fps: float = 60, fixed_time_step: bool = True,
+                 unlimited_frame_works: bool = True, config=None,
+                 mode: str = "texture",
+                 window_name: str = "depthrenderer_tpu_torch",
+                 impl: str = "auto", device="cuda"):
+        if impl not in ("auto", "soup") + IMPLS:
+            raise ValueError(f"unknown impl {impl!r}")
+        self.device = resolve_device(device)
+        _pin_matmul_precision()
+        self.camera = camera if camera is not None else Camera((512, 512))
+        self.window_name = window_name
+        self.width = int(width if width is not None
+                         else self.camera.window_width)
+        self.height = int(height if height is not None
+                          else self.camera.window_height)
+        self.fps = float(fps)
+        self.target_frame_time_secs = 1.0 / self.fps
+        self.fixed_time_step = fixed_time_step
+        self.unlimited_frame_works = unlimited_frame_works
+        self.config = config
+        self._config_auto = config is None
+        self.mode = mode
+        self._impl_requested = impl
+        self.impl = "scan" if impl == "auto" else impl
+
+        self.frame_timer = FrameTimer()
+        self.is_paused = False
+        self.is_running = True
+        self._should_close = False
+        self._mesh: Optional[Mesh] = None
+        self._frame: Optional[np.ndarray] = None
+        self.frame_count = 0
+
+        self.on_update: Optional[Callable[[float], None]] = None
+        self.on_exit: Optional[Callable[[], None]] = None
+
+    # -- scene wiring -------------------------------------------------------
+
+    @property
+    def mesh(self):
+        return self._mesh
+
+    @mesh.setter
+    def mesh(self, mesh: Mesh):
+        dev = self.device
+        self._mesh = mesh
+        self._texture = mesh.texture.image.to(dev)
+        self._vertices = mesh.vertices.to(dev)
+        self._uvs = mesh.texture_coordinates.to(dev)
+        self._indices = mesh.indices.to(dev)
+        if not mesh.is_grid:
+            if self._impl_requested == "auto":
+                self.impl = "soup"
+            return
+        vgrid, uvgrid, n = _grid_arrays(mesh)
+        self._vgrid, self._uvgrid = vgrid.to(dev), uvgrid.to(dev)
+        if self._impl_requested == "auto":
+            self.impl = _auto_impl(n, self.width, self.height)
+        # A second, denser mesh must not inherit the previous mesh's
+        # config unless the caller pinned one.
+        if self._config_auto:
+            self.config = (
+                raster_scan.suggest_scan_config(n, self.width, self.height)
+                if self.impl == "scan"
+                else suggest_config(n, self.width, self.height))
+
+    @property
+    def frame_buffer_shape(self):
+        """(width, height) of the framebuffer (reference
+        ``render.py:727-732``)."""
+        return self.width, self.height
+
+    # -- frame production ---------------------------------------------------
+
+    def draw(self):
+        """Render one frame of the current camera and mesh, through the
+        function :func:`render_clip` calls for the same route."""
+        if not self.is_running or self._mesh is None:
+            return
+        w, h, mode = self.width, self.height, self.mode
+        mvps = clip_mvps(self.camera.projection, self.camera.view[None],
+                         self._mesh.transform)
+        if not self._mesh.is_grid or self.impl == "soup":
+            frame = raster_soup.rasterize_soup(
+                self._vertices, self._uvs, self._indices, mvps[0],
+                self._texture, w, h, mode)
+        elif self.impl == "scan":
+            raw, _ = raster_scan.render_frames_scan(
+                mvps, self._vgrid, self._uvgrid, self._texture, w, h,
+                self.config, mode, frame_batch=1)
+            frame = torch.from_numpy(raster_scan.unpack_raw_frames(
+                raw, w, h)[0])
+        else:
+            frames_fn = (raster_pallas.render_frames_pallas
+                         if self.impl == "pallas"
+                         else raster_grid.render_frames_grid)
+            frame = frames_fn(mvps.to(self.device), self._vgrid,
+                              self._uvgrid, self._texture, w, h, self.config,
+                              mode, frame_batch=1)[0]
+        self._frame = frame.cpu().numpy()
+        self.frame_count += 1
+
+    def get_frame(self):
+        """The frame just drawn, (H, W, 4) uint8 numpy, top-down; None
+        before the first draw."""
+        return self._frame
+
+    # -- loop control -------------------------------------------------------
+
+    def run(self, max_frames: Optional[int] = None):
+        """Run the frame loop until :meth:`close` (or ``max_frames``).
+
+        As the reference's loop (``render.py:734-764``): draw, then
+        ``on_update(delta)`` unless paused, at the target frame rate unless
+        ``unlimited_frame_works``. Each draw reads its frame back before
+        the next starts: batched clips belong to :func:`render_clip`.
+        """
+        log("MeshRenderer.run(): per-frame dispatch loop (API-parity path); "
+            "use render_clip() for batched-throughput rendering.")
+        try:
+            self.frame_timer.reset()
+            while not self._should_close:
+                self.frame_timer.update()
+                if (self.unlimited_frame_works
+                        or self.frame_timer.elapsed
+                        > self.target_frame_time_secs):
+                    self.draw()
+                    if self.on_update is not None and not self.is_paused:
+                        if self.unlimited_frame_works or self.fixed_time_step:
+                            delta = self.target_frame_time_secs
+                        else:
+                            delta = self.frame_timer.elapsed
+                        self.on_update(delta)
+                    self.frame_timer.elapsed = 0.0
+                    if (max_frames is not None
+                            and self.frame_count >= max_frames):
+                        break
+                elif not self.unlimited_frame_works:
+                    time.sleep(max(0.0, self.target_frame_time_secs
+                                   - self.frame_timer.elapsed))
+            if self.on_exit:
+                self.on_exit()
+        finally:
+            self.is_running = False
+
+    def close(self):
+        """Ask the loop to exit (reference ``render.py:827-828``)."""
+        self._should_close = True
+
+    def cleanup(self):   # API parity; nothing to free.
+        pass
+
+    # -- runtime controls (the reference's key bindings as methods) ---------
+
+    def pause(self, value: Optional[bool] = None):
+        self.is_paused = (not self.is_paused) if value is None else bool(value)
+
+    def use_default_shader(self):
+        self.mode = "texture"
+
+    def use_debug_shader(self):
+        self.mode = "debug_z"
+
+    def toggle_wireframe(self):
+        """Toggle wireframe rendering (the reference's key-3 GL_LINE toggle,
+        ``render.py:853-859``, whose logic was inverted; this one is not).
+        Every route shades it, so the toggle never changes the route."""
+        if self.mode == "wireframe":
+            self.mode = self._pre_wireframe_mode
+        else:
+            self._pre_wireframe_mode = self.mode
+            self.mode = "wireframe"

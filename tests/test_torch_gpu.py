@@ -118,3 +118,34 @@ def test_wrappers_reject_bad_inputs(cuda):
         rs.solve_records(win.cpu(), w0, bounds, g, cfg)
     rec = rs.solve_records(win, w0, bounds, g, cfg)   # empty bounds: no records
     assert bool((rec[:, :, 2] == -1.0e9).all())
+
+
+def test_soup_on_the_card_equals_the_cpu(cuda):
+    """The soup (plain PyTorch on both devices, float32 elementwise with
+    the exact fma) at a pose where clipped fans take pixels: frames and
+    depths equal bit for bit; the float64 oracle on the card against the
+    CPU's within 1 LSB; ``min`` takes the first index among equal minima."""
+    from depthrenderer_tpu_torch.ops import raster_grid as trg
+    from depthrenderer_tpu_torch.ops import raster_reference as ref
+    from depthrenderer_tpu_torch.ops import raster_soup
+
+    key = torch.tensor([[3.0, 1.0, 1.0, 2.0, 1.0]] * 3, device=cuda)
+    assert key.min(dim=1).indices.tolist() == [1, 1, 1]
+    mesh = scene_mesh(density=5)
+    view = transforms.matmul(transforms.translation(dz=-1.5),
+                             transforms.rotation(0.3, axis=transforms.Axis.Y))
+    mvp = clip_mvps(transforms.perspective(18.0, W / H), view[None],
+                    mesh.transform)[0]
+    n = 33
+    tris = trg.straddlers(mvp, mesh.vertices.reshape(n, n, 3))
+    assert len(tris) > 0
+    args = (mesh.vertices, mesh.texture_coordinates, mesh.indices, mvp,
+            mesh.texture.image, W, H)
+    rgba, z = raster_soup.rasterize_soup(*args, mode="texture_z")
+    rgba_c, z_c = raster_soup.rasterize_soup(
+        mesh.vertices.to(cuda), *args[1:], mode="texture_z")
+    assert torch.equal(rgba_c.cpu(), rgba) and torch.equal(z_c.cpu(), z)
+    assert (z < 1e38).float().mean() > 0.2
+    oracle = ref.rasterize_reference(*args)
+    oracle_c = ref.rasterize_reference(mesh.vertices.to(cuda), *args[1:])
+    assert (oracle_c.cpu().int() - oracle.int()).abs().max() <= 1

@@ -327,24 +327,23 @@ def test_frame_grouping_with_padding(texture):
     assert not np.array_equal(grouped[0], grouped[2])
 
 
-def test_grid_exact_matches_jax_and_refuses_straddlers(texture):
+def test_grid_exact_matches_jax_at_straddling_poses(texture):
     vg, uvg, mvp = dual_anchor_scene()
-    for strips in (1, 3):
-        want = np.asarray(jrg.render_frame_grid_exact(
-            mvp, vg, uvg, texture, W, H, strips=strips))
-        got, stats = trg.render_frame_grid_exact(
-            T(mvp), T(vg), T(uvg), T(texture), W, H, strips=strips,
-            with_stats=True)
-        frame_bar(got, want)
-        assert stats["strips"] == strips
     # A camera inside the scene's depth range: triangles straddle the camera
-    # plane, which the control composes from the soup (not ported yet).
+    # plane, and the control composes them from the exactly clipped soup.
     inside = (np.asarray(jt.perspective(60.0, W / H))
               @ np.asarray(jt.translation(dz=-1.0))).astype(np.float32)
     assert trg.straddling_triangles(inside, T(vg)) > 0
-    with pytest.raises(NotImplementedError, match="soup"):
-        trg.render_frame_grid_exact(T(inside), T(vg), T(uvg), T(texture), W,
-                                    H)
+    for pose in (mvp, inside):
+        for strips in (1, 3):
+            want = np.asarray(jrg.render_frame_grid_exact(
+                pose, vg, uvg, texture, W, H, strips=strips))
+            got, stats = trg.render_frame_grid_exact(
+                T(pose), T(vg), T(uvg), T(texture), W, H, strips=strips,
+                with_stats=True)
+            frame_bar(got, want)
+            assert stats["strips"] == strips
+            assert (stats["straddlers"] > 0) == (pose is inside)
 
 
 def test_pair_wrapper_uses_the_twin_only_on_the_cpu():
