@@ -134,6 +134,41 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    (its trips; times the 64 sets for the roll). The ``probes`` line also
    gives each of those cases' slope over its stated bound (``*_x``: the
    runner's ``x_stated``) and over its library call (``*_x_library``).
+10. The farm and the rest of the surface. ``batch_path``: ``batch.run_farm``
+   (``python -m depthrenderer_tpu_torch.batch``) at its defaults on the
+   synthetic 640x480 image: mesh density 8, 60 fps, one sway loop (300
+   frames) a model, four models (``ground_truth``, the synthetic depth,
+   and three made with ``utils.overlay_noise`` at scales 32, 16 and 8,
+   seeds 1-3); three runs, sequential, ``--sharded --readback yuv420``
+   and ``--sharded --readback rgba`` (only the last with the
+   post-processing), each with the launch counters set to 0 before and
+   read after (``solve``, ``march``, ``shade`` each 4 x 300): frames/s
+   incl. encode, the sequential and sharded-rgba AVIs byte-identical per
+   model, the YUV run decoded against the rgba run (least PSNR, >= 40 dB,
+   and max abs), the mosaic, concat and paired videos' frame counts and
+   ``evaluate.compare_videos(ground_truth, model)``'s mean masked PSNR.
+   Before the runs, ``batch_kernels_vs_plain``: each model's solve, march
+   and shade at the farm's shapes and config on the loop's frames 0 and
+   150 against the plain twins (max abs 0) and equal to
+   ``render_frames_scan``'s frames; ``batch_dispatch_no_wait``: one
+   16-view chunk of the sharded farm's dispatch for every model
+   (``render_scenes_sharded`` and the YUV pack) under
+   ``torch.cuda.set_sync_debug_mode("error")``, so nothing in it waits for
+   the card, with its host ms beside the ms until the card is done.
+   ``yuv_pack_vs_cpu``: ``io.rgba_to_yuv420`` of 16 farm frames on the card
+   against the CPU's, byte for byte, its ms a frame beside its bound (4
+   bytes read and 1.5 written a pixel at 3.35 TB/s).
+   ``tiers_quality_wireframe``: the quality tier's wireframe at 1080p/d10
+   on sway frame 74: each pass's march with the sixth attrs plane (``ml /
+   ar``) against its twin (max abs 0), its ms beside the raster-z
+   instance's, the twin's and the bound; the merged, wire-tested and shaded
+   frame against the twin chain's and ``render_frames_scan``'s (equal);
+   then 32 frames of ``cli.render_scene --quality --mode wireframe``
+   (launches: ``solve`` and ``march`` 2 x frames, ``shade`` = frames: the
+   merged attrs shade once). ``cli_mp4_noise``: 32 frames of
+   ``--container mp4 --overlay-noise 32 16 8`` beside the same run into
+   an AVI: the MP4's frame count (``video.read_mp4_info``) and, remuxed
+   (no ffmpeg), its JPEG samples equal to the AVI's payloads.
 
 Each kernel's ``bound_ms`` is the larger of the bytes it must move (inputs
 read once, outputs written once) over 3.35 TB/s and the operations this
@@ -190,6 +225,15 @@ CONTROL_STRIPS = 2
 # MeshRenderer phase's loop frames and soup-route frames (mesh density 6).
 STRADDLE_POSE, INSIDE_POSE = (-3.0, 20.0), (-1.5, 0.0)
 RENDERER_FRAMES, SOUP_FRAMES, SOUP_DENSITY = 32, 4, 6
+# The batch farm at its defaults on the 640x480 synthetic scene: mesh
+# density 8, one sway loop at 60 fps (int(60 / (0.5 / 2.5)) = 300 frames) a
+# model; the three noised models' Perlin (scale, seed).
+FARM_DENSITY, FARM_FRAMES = 8, 300
+FARM_NOISE = ((32, 1), (16, 2), (8, 3))
+# The farm frames whose kernels are held against the twins (the loop's first
+# and middle frames), and the views of the sharded dispatch that must not
+# wait for the card (one chunk at the default --frame-batch).
+FARM_CHECK_FRAMES, FARM_CHUNK = (0, FARM_FRAMES // 2), 16
 # Kernel tiles of every frame that each pair kernel launch of a phase holds
 # against the twin (half the busiest, half evenly spaced).
 PAIR_SAMPLE = 16
@@ -1564,6 +1608,384 @@ def probes_phase(dev):
     return out, launches
 
 
+def write_farm_inputs(colour, depth, root):
+    """The farm's inputs: the colour image, and four models' depth maps of
+    its name: ``ground_truth`` (the synthetic depth) and three made with
+    the reference's depth augmentation, ``overlay_noise`` at FARM_NOISE's
+    scales and seeds."""
+    from PIL import Image
+
+    from depthrenderer_tpu_torch.utils import overlay_noise
+
+    root.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(colour).save(root / "scene.png")
+    models = {"ground_truth": depth}
+    for scale, seed in FARM_NOISE:
+        models[f"noise{scale}_seed{seed}"] = overlay_noise(
+            depth[..., None], scale=scale, seed=seed)[..., 0]
+    for name, d in models.items():
+        (root / "models" / name).mkdir(parents=True, exist_ok=True)
+        Image.fromarray(d).save(root / "models" / name / "scene.png")
+    return root / "scene.png", root / "models", list(sorted(models))
+
+
+def farm_run(image, models, out, extra):
+    """One ``batch.run_farm`` at the farm's defaults, launch counters set
+    to 0 before and read after -> (result, launches, seconds with the
+    post-processing)."""
+    from depthrenderer_tpu_torch import batch
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    args = batch.build_parser().parse_args(
+        [str(image), str(models), "-mesh-density", str(FARM_DENSITY),
+         "--frames", str(FARM_FRAMES), "-output-path", str(out), *extra])
+    rs.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = batch.run_farm(args)
+    seconds = time.perf_counter() - t0
+    return result, dict(rs.LAUNCHES), seconds
+
+
+def farm_scenes(colour, models, dev):
+    """The farm's scenes as ``batch.run_farm`` builds them at its defaults
+    -> ({model: (vertex grid, texture) on ``dev``}, the checked frames'
+    MVPs (2, 4, 4) and the chunk's (FARM_CHUNK, 4, 4) on the host, the
+    scan config the farm's paths take)."""
+    from depthrenderer_tpu_torch import batch
+    from depthrenderer_tpu_torch import io as dio
+    from depthrenderer_tpu_torch.render import (_grid_arrays, clip_mvps,
+                                                clip_scan_config)
+    from depthrenderer_tpu_torch.scene import Camera, Texture
+
+    args = batch.build_parser().parse_args(
+        ["scene.png", str(models), "-mesh-density", str(FARM_DENSITY)])
+    h, w = colour.shape[:2]
+    texture, base, meshes = Texture(colour), None, {}
+    for name, path in batch.discover_models(models, "scene.png"):
+        depth = dio.resize(dio.load_depth(path), colour.shape)
+        meshes[name] = batch._model_mesh(base, texture, depth, args)
+        if base is None:
+            base = meshes[name]
+    views = batch.farm_views(args.fps)
+    n = 2 ** FARM_DENSITY + 1
+    cfg = clip_scan_config(n, w, h, batch._parse_colfix(args.colfix),
+                           args.quality, args.patch, args.edge_cull)
+    camera = Camera(window_size=(w, h), fov_y=args.fov_y)
+    mvps = clip_mvps(camera.projection, views, base.transform)
+    scenes = {m: (_grid_arrays(mesh)[0].to(dev), mesh.texture.image.to(dev))
+              for m, mesh in meshes.items()}
+    return (scenes, mvps[list(FARM_CHECK_FRAMES)], mvps[:FARM_CHUNK],
+            cfg)
+
+
+def farm_kernels_vs_plain(colour, models, dev):
+    """Every farm model's kernels at the farm's shapes (640x480, d8, the
+    farm's own scan config) on the loop's first and middle frames: solve,
+    march and shade each against its plain twin on the same inputs, max
+    abs 0, and the kernel chain's frame equal to ``render_frames_scan``'s.
+    Then one chunk of the sharded farm's dispatch (every model's
+    ``render_scenes_sharded`` and YUV pack) under CUDA's sync debug mode
+    "error": it must queue its work without waiting for the card."""
+    from depthrenderer_tpu_torch import io as dio
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.parallel import render_scenes_sharded
+
+    h, w = colour.shape[:2]
+    scenes, mvps, chunk, cfg = farm_scenes(colour, models, dev)
+    g = rs.ScanGeometry.of(w, h, 2 ** FARM_DENSITY + 1,
+                           2 ** FARM_DENSITY + 1, cfg)
+    minv = rs.minv_rows(mvps)
+    errs = {"solve": 0.0, "march": 0.0, "shade": 0}
+    plain_s = 0.0
+    for name, (vgrid, texture) in scenes.items():
+        texq = rs.pack_texture(texture)
+        prep = rs.prep_scan(mvps.to(dev), vgrid, w, h, cfg)
+        path = rs.render_frames_scan(mvps, vgrid, None, texture, w, h, cfg)[0]
+        for i in range(mvps.shape[0]):
+            args_i = (prep.win[i], prep.w0[i], prep.bounds[i])
+            margs = (*args_i, prep.canch[i], prep.mid[i], minv[i], g, cfg)
+            rec = rs.solve_records(*args_i, g, cfg)
+            att = rs.march_exact(rec, *margs)
+            out = rs.shade(att, texq, g, cfg, "texture")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rec_p = rs.solve_records_plain(*args_i, g, cfg)
+            att_p = rs.march_exact_plain(rec, *margs)
+            out_p = rs.shade_plain(att, texq, *texq.shape, "texture")
+            torch.cuda.synchronize()
+            plain_s += time.perf_counter() - t0
+            err = {"solve": float((rec - rec_p).abs().max()),
+                   "march": float((att - att_p).abs().max()),
+                   "shade": int(frame_agreement(out, out_p)[0].max())}
+            cov = float((out[:h, :w] != (255 << 24) - 2**32).float().mean())
+            if any(err.values()) or not torch.equal(out, path[i]) \
+                    or not 0.3 < cov <= 1.0:
+                raise AssertionError(
+                    f"farm {name} frame {FARM_CHECK_FRAMES[i]}: kernels off "
+                    f"their twins by {err}, path frame equal "
+                    f"{torch.equal(out, path[i])}, covered {cov:.3f}")
+            errs = {k: max(v, err[k]) for k, v in errs.items()}
+    phase("batch_kernels_vs_plain", models=len(scenes),
+          frames=",".join(map(str, FARM_CHECK_FRAMES)), size=f"{w}x{h}",
+          density=FARM_DENSITY, cfg=f"sr{cfg.sr}/hyps{cfg.hyps}/"
+          f"colfix{cfg.colfix}/cw{cfg.cw}/rmax{cfg.rmax}",
+          **{f"{k}_max_abs": v for k, v in errs.items()},
+          equal_to_render_path=True, plain_s=f"{plain_s:.1f}")
+
+    vgrids = [v for v, _ in scenes.values()]
+    textures = [t for _, t in scenes.values()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = render_scenes_sharded(
+            chunk.expand(len(vgrids), -1, -1, -1), vgrids, None, textures, w,
+            h, frame_batch=FARM_CHUNK, scan_config=cfg, devices=[dev])
+        packed = [dio.rgba_to_yuv420(f) for f in frames]
+        dispatch_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    done_ms = (time.perf_counter() - t0) * 1e3
+    if [p.shape for p in packed] != [(FARM_CHUNK, h * w * 3 // 2)] * len(
+            vgrids):
+        raise AssertionError(f"sharded dispatch packed "
+                             f"{[p.shape for p in packed]}")
+    phase("batch_dispatch_no_wait", models=len(vgrids), frames=FARM_CHUNK,
+          sync_debug_mode="error", dispatch_ms=f"{dispatch_ms:.2f}",
+          done_ms=f"{done_ms:.2f}")
+
+
+def batch_path(colour, depth, dev, tmp):
+    """The batch farm (``python -m depthrenderer_tpu_torch.batch``) at its
+    defaults on the synthetic 640x480 scene: d8, 60 fps, one sway loop
+    (300 frames) a model, four models; its kernels against their twins at
+    the farm's shapes (:func:`farm_kernels_vs_plain`), then sequential,
+    ``--sharded --readback yuv420`` and ``--sharded --readback rgba`` (the
+    last with the post-processing)."""
+    from depthrenderer_tpu_torch import evaluate
+    from depthrenderer_tpu_torch import io as dio
+    from depthrenderer_tpu_torch import video
+    from depthrenderer_tpu_torch.utils import psnr
+
+    image, models, names = write_farm_inputs(colour, depth, tmp / "farm_in")
+    farm_kernels_vs_plain(colour, models, dev)
+    runs = {"seq": ["--no-post"],
+            "sharded_yuv420": ["--sharded", "--readback", "yuv420",
+                               "--no-post"],
+            "sharded_rgba": ["--sharded", "--readback", "rgba"]}
+    out, fields = {}, {}
+    for run, extra in runs.items():
+        result, launches, seconds = farm_run(image, models,
+                                             tmp / f"farm_{run}", extra)
+        want = len(names) * FARM_FRAMES
+        if result["frames"] != want or launches != {
+                "solve": want, "march": want, "shade": want}:
+            raise AssertionError(f"farm {run}: {result['frames']} frames, "
+                                 f"launches {launches}, expected {want} each")
+        out[run] = dict(zip(result["models"], result["videos"]))
+        fields[f"{run}_fps"] = f"{result['frames'] / result['seconds']:.2f}"
+        fields[f"{run}_s"] = f"{seconds:.1f}"
+        fields[f"{run}_launches"] = json.dumps(launches).replace(" ", "")
+    identical = {m: Path(out["seq"][m]).read_bytes()
+                 == Path(out["sharded_rgba"][m]).read_bytes() for m in names}
+    if not all(identical.values()):
+        raise AssertionError(f"sequential and sharded-rgba AVIs differ: "
+                             f"{identical}")
+    worst_psnr, worst_abs = float("inf"), 0
+    for m in names:
+        for a, b in zip(video.read_video_frames(out["sharded_yuv420"][m]),
+                        video.read_video_frames(out["sharded_rgba"][m])):
+            worst_psnr = min(worst_psnr, psnr(a, b))
+            worst_abs = max(worst_abs, int(np.abs(a.astype(int)
+                                                  - b.astype(int)).max()))
+    if worst_psnr < 40.0:
+        raise AssertionError(f"YUV readback decodes {worst_psnr:.2f} dB from "
+                             "the RGBA readback")
+    root = Path(out["sharded_rgba"][names[0]]).parents[2]
+    post = {"mosaic": root / "mosaic" / "scene.avi",
+            "concat": root / "concat" / "scene.avi",
+            **{f"paired_{m}": root / "paired" / "scene"
+               / f"ground_truth-{m}.avi" for m in names if m != "ground_truth"}}
+    counts = {k: video.read_video_info(p)[2] for k, p in post.items()}
+    expect = {k: FARM_FRAMES * (len(names) if k == "concat" else 1)
+              for k in post}
+    if counts != expect:
+        raise AssertionError(f"post-processing frame counts {counts}, "
+                             f"expected {expect}")
+    gt_depth = dio.resize(dio.load_depth(models / "ground_truth" /
+                                         "scene.png"), colour.shape)
+    masked = {m: float(np.mean(evaluate.compare_videos(
+        out["sharded_rgba"]["ground_truth"], out["sharded_rgba"][m],
+        gt_depth, device="cuda"))) for m in names if m != "ground_truth"}
+    phase("batch_path", models=len(names), frames_per_model=FARM_FRAMES,
+          size=f"{colour.shape[1]}x{colour.shape[0]}", density=FARM_DENSITY,
+          **fields, seq_vs_sharded_rgba_identical=all(identical.values()),
+          yuv_vs_rgba_min_psnr_db=f"{worst_psnr:.2f}",
+          yuv_vs_rgba_max_abs=worst_abs,
+          post_frames=json.dumps(counts).replace(" ", ""),
+          **{f"masked_psnr_{m}_db": f"{v:.2f}" for m, v in masked.items()})
+
+
+def yuv_pack_vs_cpu(colour, depth, dev):
+    """The farm's YUV 4:2:0 pack on the card against the CPU's on 16 farm
+    frames (the ground-truth model's first frame group), byte for byte,
+    its time a frame beside its bound: 4 bytes read and 1.5 written a
+    pixel at 3.35 TB/s."""
+    from depthrenderer_tpu_torch import io as dio
+    from depthrenderer_tpu_torch.march_times import HBM_BYTES_PER_S
+    from depthrenderer_tpu_torch.render import render_clip
+
+    mesh, projection = smoke_scene(colour, depth, dev,
+                                   density=FARM_DENSITY)[:2]
+    h, w = colour.shape[:2]
+    frames = torch.from_numpy(render_clip(
+        mesh, projection, clip_views(16), w, h, device="cuda"))
+    on_card = frames.to(dev)
+    packed = dio.rgba_to_yuv420(on_card)
+    if not torch.equal(packed.cpu(), dio.rgba_to_yuv420(frames)):
+        bad = int((packed.cpu() != dio.rgba_to_yuv420(frames)).sum())
+        raise AssertionError(f"YUV pack: {bad} bytes differ from the CPU's")
+    n = frames.shape[0]
+    ms = cuda_ms(lambda: dio.rgba_to_yuv420(on_card), 20) / n
+    bound_ms = h * w * 5.5 / HBM_BYTES_PER_S * 1e3
+    phase("yuv_pack_vs_cpu", frames=n, equal=True, ms_per_frame=f"{ms:.6f}",
+          bound_ms_per_frame=f"{bound_ms:.6f}", bound_by="bytes",
+          bound_share=f"{bound_ms / ms:.3f}")
+
+
+def wire_pass(label, cfg, mvp, vgrid, texq, width, height, dev):
+    """One pass of the quality wireframe on one frame: the march's 6-plane
+    attrs against the twin's (max abs 0) -> (kernel attrs, twin attrs,
+    fields: the march's ms beside the texture_z instance's, the twin's
+    and the bound)."""
+    from depthrenderer_tpu_torch.march_times import bound, scan_bounds
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    g = rs.ScanGeometry.of(width, height, vgrid.shape[0], vgrid.shape[1],
+                           cfg)
+    prep = rs.prep_scan(mvp.to(dev), vgrid, width, height, cfg)
+    args = (prep.win[0], prep.w0[0], prep.bounds[0])
+    rec = rs.solve_records(*args, g, cfg)
+    margs = (rec, *args, prep.canch[0], prep.mid[0], rs.minv_rows(mvp)[0], g,
+             cfg)
+    att = rs.march_exact(*margs, min_lam=True)
+    att_p, plain = timed_ms(lambda: rs.march_exact_plain(*margs,
+                                                         min_lam=True))
+    err = float((att - att_p).abs().max())
+    if att.shape[0] != 6 or err != 0.0:
+        raise AssertionError(f"{label}: 6-plane march differs from the twin "
+                             f"by {err} (shape {tuple(att.shape)})")
+    b = bound(*scan_bounds(prep, 0, g, cfg, texq, with_z=True,
+                           min_lam=True)["march"])
+    fields = {"march_ms": f"{cuda_ms(lambda: rs.march_exact(*margs, min_lam=True), 10):.4f}",
+              "texture_z_march_ms":
+                  f"{cuda_ms(lambda: rs.march_exact(*margs, raster_z=True), 10):.4f}",
+              "march_plain_ms": f"{plain:.1f}",
+              "march_bound_ms": f"{b[0]:.4f}", "bound_by": b[1],
+              "max_abs_err": err,
+              "wire_share": f"{float((att[5][att[3] > 0.5] <= 0.15).float().mean()):.4f}"}
+    return att, att_p, fields
+
+
+def tiers_quality_wireframe(colour, depth, scene, dev, tmp):
+    """The quality tier's wireframe (``--quality --mode wireframe``) at
+    1080p/d10 on sway frame 74: each pass's 6-plane march against its twin,
+    the merged and wire-tested frame against the twin chain's and the
+    render path's; then 32 frames through ``cli.render_scene``."""
+    from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps
+
+    mesh, projection, vgrid, uvgrid, texture = scene
+    n = vgrid.shape[0]
+    cfg = rs.suggest_scan_config(n, WIDTH, HEIGHT, quality=True)
+    cfg1, cfg2 = rs.tier_configs(cfg, n, n, WIDTH, HEIGHT)
+    mvp = clip_mvps(projection, clip_views(300)[TIER_FRAME:TIER_FRAME + 1],
+                    mesh.transform)
+    texq = rs.pack_texture(texture)
+    a1, p1, f1 = wire_pass("pass 1", cfg1, mvp, vgrid, texq, WIDTH, HEIGHT,
+                           dev)
+    phase("tiers_quality_wireframe_pass1", frame=TIER_FRAME, **f1)
+    a2, p2, f2 = wire_pass("pass 2", cfg2, rs.swap_mvps(mvp),
+                           vgrid.transpose(0, 1).contiguous(),
+                           rs.pack_texture(texture.transpose(0, 1)
+                                           .contiguous()), HEIGHT, WIDTH, dev)
+    phase("tiers_quality_wireframe_pass2", frame=TIER_FRAME, **f2)
+    g1 = rs.ScanGeometry.of(WIDTH, HEIGHT, n, n, cfg1)
+
+    def frame_of(x1, x2, shade):
+        merged = rs.wire_coverage(rs.merge_row_edge(x1[None], x2[None],
+                                                    WIDTH, HEIGHT))[0]
+        return shade(merged)
+
+    kernel = frame_of(a1, a2, lambda m: rs.shade(m, texq, g1, cfg1,
+                                                 "wireframe"))
+    plain = frame_of(p1, p2, lambda m: rs.shade_plain(m, texq, *texq.shape,
+                                                      "wireframe"))
+    path = rs.render_frames_scan(mvp, vgrid, uvgrid, texture, WIDTH, HEIGHT,
+                                 cfg, "wireframe")[0][0]
+    lit = float((rs.raw_rgba(kernel[None], WIDTH, HEIGHT)[..., :3].amax(-1)
+                 > 0).float().mean())
+    if not (torch.equal(kernel, plain) and torch.equal(kernel, path)):
+        raise AssertionError("quality wireframe: the merged kernel frame "
+                             "differs from the twin chain's or the path's")
+    phase("tiers_quality_wireframe_merged", equal_to_twin_chain=True,
+          equal_to_render_path=True, lit_share=f"{lit:.4f}")
+    frames = TIER_CLI_FRAMES
+    fps = render_fps(mesh, projection, frames, 16, quality=True,
+                     mode="wireframe")
+    rs.reset_launch_counts()
+    result = cli.render_scene(colour, depth, cli_args(
+        tmp / "quality_wireframe", frames, ["--quality", "--mode",
+                                            "wireframe"]))
+    launches = dict(rs.LAUNCHES)
+    # Two passes march; the merged attrs shade once a frame.
+    want = {"solve": 2 * frames, "march": 2 * frames, "shade": frames}
+    if launches != want:
+        raise AssertionError(f"quality wireframe: launches {launches}, "
+                             f"expected {want}")
+    avi, png = check_outputs(result, frames)
+    phase("tiers_quality_wireframe_path", frames=frames,
+          launches=json.dumps(launches).replace(" ", ""),
+          render_only_fps=f"{fps:.2f}",
+          incl_encode_fps=f"{frames / result['seconds']:.2f}",
+          avi_bytes=avi, sample_png_bytes=png)
+
+
+def cli_mp4_noise(colour, depth, tmp):
+    """``--container mp4 --overlay-noise 32 16 8`` through
+    ``cli.render_scene`` (32 frames at 1080p/d10), beside the same run into
+    an AVI: the MP4's frame count, and (remuxed, without ffmpeg) its JPEG
+    samples against the AVI's payloads."""
+    from depthrenderer_tpu_torch import cli, video
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+
+    frames = TIER_CLI_FRAMES
+    noise = ["--overlay-noise", "32", "16", "8"]
+    rs.reset_launch_counts()
+    mp4 = cli.render_scene(colour, depth, cli_args(
+        tmp / "mp4", frames, ["--container", "mp4", *noise]))
+    launches = dict(rs.LAUNCHES)
+    if launches != {"solve": frames, "march": frames, "shade": frames}:
+        raise AssertionError(f"cli mp4: launches {launches}")
+    avi = cli.render_scene(colour, depth, cli_args(tmp / "mp4_avi", frames,
+                                                   noise))
+    info = video.read_mp4_info(mp4["video"])
+    if not mp4["video"].endswith(".mp4") or info[2] != frames:
+        raise AssertionError(f"cli mp4: {mp4['video']} holds {info}")
+    remux = not video.ffmpeg_available()
+    same = (video.read_mp4_samples(mp4["video"])
+            == video.read_avi_payloads(avi["video"]))
+    if remux and not same:
+        raise AssertionError("cli mp4: the remuxed JPEG samples differ from "
+                             "the AVI's payloads")
+    phase("cli_mp4_noise", frames=frames, mp4_frames=info[2],
+          converter="remux" if remux else "ffmpeg",
+          payloads_equal_avi=same, mp4_bytes=Path(mp4["video"]).stat().st_size,
+          incl_encode_fps=f"{frames / mp4['seconds']:.2f}")
+
+
 def kernel_table(results, launches):
     """The JSON kernel table: every kernel's source, the TPU kernel it
     replaces (the probe kernels: every experiments/ site of their cases),
@@ -1665,6 +2087,18 @@ def main(argv=None):
         probe_results, probe_launches = probes_phase(dev)
         results.update(probe_results)
         seconds["probes"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch_path(colour, depth, dev, tmp)
+        seconds["batch_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        yuv_pack_vs_cpu(colour, depth, dev)
+        seconds["yuv_pack_vs_cpu"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tiers_quality_wireframe(colour, depth, scene, dev, tmp)
+        seconds["tiers_quality_wireframe"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cli_mp4_noise(colour, depth, tmp)
+        seconds["cli_mp4_noise"] = time.perf_counter() - t0
     phase("seconds", **{k: f"{v:.1f}" for k, v in seconds.items()},
           total=f"{time.perf_counter() - t_all:.1f}")
 

@@ -12,9 +12,9 @@ camera at dz=-10, 5-second composed sway, 3 loops, sample frame at frame 10,
 default, or through the tiled rasteriser's pair kernel with ``--impl pallas``
 or ``--impl grid``; ``--device cpu`` runs the plain PyTorch passes. The
 scan's fidelity tiers: ``--quality``, and ``--patch --colfix 3`` (balanced).
-
-Options of the JAX CLI that this port does not implement yet raise
-``NotImplementedError`` naming the ROADMAP item (see :func:`check_ported`).
+``--container mp4`` remuxes the AVI's JPEG payloads into an MP4 (H.264 when
+ffmpeg is on the host); ``--overlay-noise`` overlays Perlin noise on the
+depth map, one seed-0 layer a scale, as the reference's depth augmentation.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ from . import io as dio
 from . import transforms
 from .render import render_clip, resolve_device
 from .scene import Camera, Mesh, Texture
-from .utils import log
+from .utils import log, overlay_noise
 from .writers import AsyncImageWriter, AsyncVideoWriter
 
 SAMPLE_FRAME_INDEX = 10  # reference: DelayedTask(OneTimeTask(write), delay=10)
@@ -72,12 +72,12 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
     p.add_argument("--mode", choices=("texture", "debug_z", "wireframe"),
                    default="texture",
                    help="Shading mode (debug_z = the reference's debug "
-                        "shader; wireframe = the triangles' edge bands, "
-                        "not with --quality).")
+                        "shader; wireframe = the triangles' edge bands).")
     p.add_argument("--codec", choices=("MJPG", "DIB "), default="MJPG",
                    help="AVI codec: MJPG (compact) or 'DIB ' (uncompressed).")
     p.add_argument("--container", choices=("avi", "mp4"), default="avi",
-                   help="Video container (mp4 is not ported yet).")
+                   help="Video container: avi, or mp4 (H.264 with "
+                        "ffmpeg, else the AVI's JPEG payloads remuxed).")
     p.add_argument("--frame-batch", type=int, default=16, dest="frame_batch",
                    help="Frames rendered per group (default 16).")
     p.add_argument("--binning-quantile", type=float, default=0.995,
@@ -118,42 +118,37 @@ def build_parser(prog="python -m depthrenderer_tpu_torch"):
                    help="Also dump every Nth frame as PNG.")
     p.add_argument("--overlay-noise", type=int, nargs="+", default=None,
                    dest="overlay_noise", metavar="SCALE",
-                   help="Perlin noise overlay on the depth map (not ported "
-                        "yet).")
+                   help="Overlay Perlin noise on the depth map at the "
+                        "given scales (the reference's depth augmentation, "
+                        "e.g. --overlay-noise 32 16 8).")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="cuda (the kernels; default) or cpu (the plain "
                         "PyTorch passes).")
     return p
 
 
-def check_ported(args):
-    """Raise ``NotImplementedError`` for a JAX-CLI option this port does not
-    implement; none of them falls back to another path."""
-    where = "ROADMAP.md queue 1"
-    unported = []
-    if (args.impl in ("auto", "scan") and args.quality
-            and args.mode == "wireframe"):
-        unported.append(f"--mode wireframe with --quality ({where} item 1; "
-                        "the single scan pass shades it)")
-    if args.container == "mp4":
-        unported.append(f"--container mp4 ({where} 'MP4 output')")
-    if args.overlay_noise:
-        unported.append(f"--overlay-noise ({where} 'Perlin overlay')")
-    if unported:
-        raise NotImplementedError("not ported yet: " + "; ".join(unported))
+def noised_depth(depth, scales):
+    """The depth map with one seed-0 Perlin layer a scale overlaid, in
+    order (reference ``__main__.py:88``)."""
+    d = depth[..., None]
+    for scale in scales:
+        d = overlay_noise(d, scale=scale, seed=0)
+    return d[..., 0]
 
 
 def render_scene(colour, depth, args):
     """Everything after the image loads: mesh, camera, sway, render, encode.
 
     :param colour: (H, W, 4) uint8 colour image.
-    :param depth: (H, W) uint8 depth map at the colour image's size.
+    :param depth: (H, W) uint8 depth map at the colour image's size (with
+        ``--overlay-noise`` the noise is overlaid here).
     :param args: the parsed CLI namespace (:func:`build_parser`).
     :return: dict with ``frames``, ``seconds`` (render and encode) and the
         output ``video`` / ``sample`` paths.
     """
-    check_ported(args)
     device = resolve_device(args.device)
+    if args.overlay_noise:
+        depth = noised_depth(depth, args.overlay_noise)
     height, width = colour.shape[:2]
     out_w = args.width or width
     out_h = args.height or height
@@ -179,8 +174,9 @@ def render_scene(colour, depth, args):
     video_writer = None
     video_path = None
     if not args.no_video:
-        video_path = os.path.join(args.output_path,
-                                  f"{Path(args.image_path).name}.avi")
+        video_path = os.path.join(
+            args.output_path,
+            f"{Path(args.image_path).name}.{args.container}")
         video_writer = AsyncVideoWriter(video_path, size=(out_w, out_h),
                                         fps=args.fps, codec=args.codec)
     sample_path = os.path.join(args.output_path, "sample_frame.png")
@@ -216,6 +212,7 @@ def render_scene(colour, depth, args):
     finally:
         if video_writer is not None:
             video_writer.cleanup()
+            video_path = video_writer.path
         image_writer.cleanup()
     dt = time.perf_counter() - t0
     log(f"Rendered and encoded {num_frames} frames in {dt:.2f}s "
@@ -227,7 +224,6 @@ def render_scene(colour, depth, args):
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    check_ported(args)
     resolve_device(args.device)
     log(f"Loading colour image {args.image_path} ...")
     colour = dio.load_colour(args.image_path)

@@ -9,9 +9,13 @@
 //                    per-chunk windows
 //   march_kernel  <- march_block, _exact_record, _exact_cells, _cell_fold and
 //                    the colfix fan cascade (fix_slot, K = 0..3), with edge
-//                    culling and the wireframe coverage; a template instance
-//                    per (big_grid, edge cull, wireframe), so the default
-//                    path carries neither the cull nor the wireframe state
+//                    culling and the wireframe state (the coverage test of
+//                    the single pass, or the attrs mode's sixth plane, the
+//                    winner's least barycentric weight over its area, which
+//                    the quality tier merges before its one wire test); a
+//                    template instance per (big_grid, edge cull, wireframe),
+//                    so the default path carries neither the cull nor the
+//                    wireframe state
 //   shade_kernel  <- the attrs capture and shade_block, with the raster-z
 //                    output of the texture_z mode
 //
@@ -95,8 +99,11 @@ constexpr float kWireEdge = 0.15f;       // WIREFRAME_EDGE_THRESHOLD
 // mode: 0 texture, 1 debug_z, 2 texture_z; dual: records carry the right
 // column's corners (dual_col); raster_z: the march writes a fifth attrs
 // plane, the raster z (read by the texture_z shade and the attrs merge);
-// big: the big_grid variant; wire: the coverage plane keeps the wireframe
-// edge bands; cull: cells whose corner model-z spread exceeds cull_thr fail.
+// big: the big_grid variant; wire: 1, the coverage plane keeps the
+// wireframe edge bands; 2, coverage is left as it is and a sixth attrs
+// plane (after the raster z) holds ml / ar, the winner's least barycentric
+// weight (0 where uncovered); cull: cells whose corner model-z spread
+// exceeds cull_thr fail.
 struct ScanParams {
   int width, height, n_r, n_c, cl, rpad, wl, hpad, nbands, nchunks, nblk;
   int rmax, cw, cwf, sr, off, nbr, hyps, dmax, colfix, ht, wt, mode, dual;
@@ -255,7 +262,8 @@ solve_kernel(const float* __restrict__ win, const int* __restrict__ w0,
 
 // ---------------------------------------------------------------------------
 // march + exact tests + colfix: attrs (4, hpad, wl) for one frame: u, v,
-// model z, coverage; with raster_z also the raster z (5, hpad, wl)
+// model z, coverage; with raster_z also the raster z (5, hpad, wl), and with
+// wire == 2 then ml / ar (6, hpad, wl)
 // ---------------------------------------------------------------------------
 
 struct Best {
@@ -813,6 +821,7 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
       const size_t o = orow + 32 * q;
       for (int a = 0; a < 4; ++a) attrs[a * ap + o] = 0.0f;
       if (p.raster_z) attrs[4 * ap + o] = kFar;
+      if (WIRE && p.wire == 2) attrs[5 * ap + o] = 0.0f;
     }
     return;
   }
@@ -966,13 +975,14 @@ march_kernel(const float* __restrict__ rec, const float* __restrict__ win,
     const float num =
         (((p.m2[0] * ndcx + p.m2[1] * ndcy) + p.m2[2] * bz) + p.m2[3]) * b.ar;
     const float zm = cov ? num / den : 0.0f;
-    if (WIRE) cov = cov && b.ml <= kWireEdge * b.ar;
+    if (WIRE && p.wire == 1) cov = cov && b.ml <= kWireEdge * b.ar;
     const size_t o = orow + 32 * q;
     attrs[o] = u;
     attrs[ap + o] = v;
     attrs[2 * ap + o] = zm;
     attrs[3 * ap + o] = cov ? 1.0f : 0.0f;
     if (p.raster_z) attrs[4 * ap + o] = bz;
+    if (WIRE && p.wire == 2) attrs[5 * ap + o] = b.ml / b.ar;
   }
 }
 

@@ -106,19 +106,22 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False):
+def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False,
+                min_lam=False):
     """Bytes and operations of the three scan kernels on frame i; with a
     band flag (sparse bands) the records, the window and the attributes
     read count only the flagged bands' share. The attributes are 4 planes;
     ``with_z`` (the tiers' passes): the march also writes the raster-z
-    plane, and the shade reads it and writes the raster z. A big_grid
-    block sweeps its whole 128-aligned fetch window (``min(cw + 128,
-    CL)`` columns)."""
+    plane, and the shade reads it and writes the raster z; ``min_lam``
+    (the quality wireframe's passes): the march writes a sixth plane too.
+    A big_grid block sweeps its whole 128-aligned fetch window (``min(cw +
+    128, CL)`` columns)."""
     from .ops import raster_scan as rs
 
     share = 1.0 if bflag is None else float(bflag.float().mean())
     rec = g.nbands * cfg.nbr * cfg.nrec * 8 * g.cl * 4 * share
     attrs = rs.n_attrs(with_z) * g.hpad * g.wl * 4
+    march_attrs = rs.n_attrs(with_z, min_lam) * g.hpad * g.wl * 4
     ints = _nbytes(prep.w0[i], prep.bounds[i])
     win = _nbytes(prep.win[i]) * share
     solve = (win + ints + rec, 2 * 8 * 128 * g.nchunks * g.nbands * share)
@@ -130,8 +133,8 @@ def scan_bounds(prep, i, g, cfg, texq, bflag=None, with_z=False):
     cols = torch.where(mid >= 0, 128, torch.where(mid == -1, wide, 0))
     if bflag is not None:
         cols = cols.reshape(g.nbands, g.nblk) * bflag.long()[:, None]
-    march = (rec + win + _nbytes(prep.canch[i], prep.mid[i]) + ints + attrs,
-             2 * 1024 * int(cols.sum()))
+    march = (rec + win + _nbytes(prep.canch[i], prep.mid[i]) + ints
+             + march_attrs, 2 * 1024 * int(cols.sum()))
     shade = (attrs * share + _nbytes(texq)
              + g.hpad * g.wl * 4 * (2 if with_z else 1), 0)
     return {"solve": solve, "march": march, "shade": shade}

@@ -1,4 +1,5 @@
-"""The native (C) frame encoders: PNG, baseline JPEG and AVI DIB rows.
+"""The native (C) frame encoders: PNG, baseline JPEG (from RGB(A) or from
+planar YUV 4:2:0) and AVI DIB rows.
 
 Compiles this package's own ``csrc/frameops.c`` (a copy of the C source the
 JAX package ships beside its encoders) with the system C compiler into the
@@ -62,6 +63,9 @@ def _load():
             lib.jpeg_encode.argtypes = [cp, i32, i32, i32, i32, cp, sz]
             lib.jpeg_encode_bound.restype = sz
             lib.jpeg_encode_bound.argtypes = [i32, i32]
+            lib.jpeg_encode_yuv420.restype = sz
+            lib.jpeg_encode_yuv420.argtypes = [cp, cp, cp, i32, i32, i32, cp,
+                                               sz]
             lib.rgb_to_bgr_rows.restype = None
             lib.rgb_to_bgr_rows.argtypes = [cp, cp, i32, i32, i32, i32, i32]
             _lib = lib
@@ -101,6 +105,31 @@ def jpeg_encode(image, quality: int = 92) -> bytes:
                         quality, out, cap)
     if n == 0:
         raise RuntimeError("native jpeg_encode failed")
+    return out.raw[:n]
+
+
+def jpeg_encode_yuv420(y, cb, cr, quality: int = 92) -> bytes:
+    """Encode planar YUV 4:2:0 (JFIF full-range BT.601, as
+    :func:`.io.rgba_to_yuv420` packs it) as baseline JPEG: ``y`` (H, W),
+    ``cb`` and ``cr`` (ceil(H/2), ceil(W/2)) uint8. The encoder skips its
+    colour conversion and chroma subsampling."""
+    lib = _load()
+    y, cb, cr = (np.ascontiguousarray(p, dtype=np.uint8) for p in (y, cb, cr))
+    if y.ndim != 2:
+        raise ValueError(f"expected an (H, W) Y plane, got {y.shape}")
+    h, w = y.shape
+    half = ((h + 1) // 2, (w + 1) // 2)
+    if cb.shape != half or cr.shape != half:
+        raise ValueError(f"chroma planes {cb.shape} and {cr.shape} do not "
+                         f"match the Y plane {y.shape}: expected {half}")
+    cap = lib.jpeg_encode_bound(w, h)
+    out = ctypes.create_string_buffer(cap)
+    n = lib.jpeg_encode_yuv420(y.ctypes.data_as(ctypes.c_char_p),
+                               cb.ctypes.data_as(ctypes.c_char_p),
+                               cr.ctypes.data_as(ctypes.c_char_p), w, h,
+                               quality, out, cap)
+    if n == 0:
+        raise RuntimeError("native jpeg_encode_yuv420 failed")
     return out.raw[:n]
 
 

@@ -639,6 +639,13 @@ def check_uv_grid(uv_grid):
             f"{corners.tolist()})")
 
 
+def raw_rgba(raw, width, height):
+    """(T, HPAD, WL) int32 packed RGBA -> (T, H, W, 4) uint8 view on the
+    same device (R in the low byte: little-endian bytes are R, G, B, A)."""
+    u8 = raw.view(torch.uint8).unflatten(-1, (raw.shape[-1], 4))
+    return u8[..., :height, :width, :]
+
+
 def unpack_raw_frames(raw, width, height):
     """(T, HPAD, WL) int32 packed RGBA -> (T, H, W, 4) uint8 numpy view."""
     raw = np.ascontiguousarray(np.asarray(
@@ -857,18 +864,23 @@ def _edge(xa, ya, xb, yb, qx, qy):
     return (xb - xa) * (qy - ya) - (yb - ya) * (qx - xa)
 
 
-def n_attrs(raster_z: bool) -> int:
-    """attrs planes: u, v, model z, coverage, and the raster z when a
-    consumer reads it (the ``texture_z`` shade, the attrs merge)."""
-    return 5 if raster_z else 4
+def n_attrs(raster_z: bool, min_lam: bool = False) -> int:
+    """attrs planes: u, v, model z, coverage, the raster z when a consumer
+    reads it (the ``texture_z`` shade, the attrs merge), and after it the
+    winner's normalised least barycentric weight for the quality tier's
+    wireframe mode."""
+    return 6 if min_lam else 5 if raster_z else 4
 
 
 def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
                       config: ScanConfig, bflag=None, raster_z: bool = False,
-                      wire: bool = False):
+                      wire: bool = False, min_lam: bool = False):
     """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL)
     float32: u, v, model z, coverage (1.0 / 0.0); with ``raster_z`` a fifth
-    plane, the raster z (FAR where uncovered).
+    plane, the raster z (FAR where uncovered); with ``min_lam`` (which
+    implies ``raster_z``) a sixth, ``ml / ar``, the winner's least
+    barycentric weight over its doubled area (the JAX kernel's attrs
+    channel 5; 0 where uncovered), coverage left ungated.
 
     ``minv`` is the frame's (8,) float32 inverse-MVP rows 2 and 3. Pixels
     are processed as (bands, 8, blocks, 128); the JAX kernel's block-level
@@ -881,15 +893,15 @@ def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
     """
     dev = rec.device
     c = _Consts.of(g)
-    na = n_attrs(raster_z)
+    na = n_attrs(raster_z, min_lam)
     out = torch.zeros((na, g.hpad, g.wl), dtype=_F32, device=dev)
-    if raster_z:
+    if na > 4:
         out[4] = _FAR
     m2 = [common.const(_f32(minv[k]), rec) for k in range(4)]
     m3 = [common.const(_f32(minv[4 + k]), rec) for k in range(4)]
     for b0, b1 in _active_chunks(g.nbands, bflag):
         attrs = _march_bands(rec[b0:b1], win, w0[b0:b1], bounds, canch,
-                             mid, m2, m3, b0, g, c, config, wire)
+                             mid, m2, m3, b0, g, c, config, wire, min_lam)
         attrs = attrs[:na].reshape(na, (b1 - b0) * 8, g.wl)
         if bflag is not None:
             keep = bflag[b0:b1].bool().repeat_interleave(8)[None, :, None]
@@ -900,7 +912,7 @@ def march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
 
 def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
                  g: ScanGeometry, c: _Consts, config: ScanConfig,
-                 wire: bool = False):
+                 wire: bool = False, min_lam: bool = False):
     dev = rec.device
     B = rec.shape[0]
     NBR, SR, OFF, CW = config.nbr, config.sr, config.off, config.cw
@@ -1182,7 +1194,10 @@ def _march_bands(rec, win, w0, bounds, canch, mid, m2, m3, b0,
     if wire:
         cov = cov & (best.ml <= common.const(common.WIREFRAME_EDGE_THRESHOLD,
                                              bz) * best.ar)
-    return torch.stack([u, v, zmod, cov.to(_F32), bz])       # (5,B,8,nblk,128)
+    planes = [u, v, zmod, cov.to(_F32), bz]
+    if min_lam:
+        planes.append(best.ml / best.ar)
+    return torch.stack(planes)                          # (5|6,B,8,nblk,128)
 
 
 def fan_cascade(k: int):
@@ -1469,7 +1484,9 @@ def kernel_ptxas(kernel: str, lib=None) -> dict:
 
 def _params(g: ScanGeometry, config: ScanConfig, minv=None, tex_hw=(0, 0),
             mode: str = "texture", raster_z: bool = False,
-            wire: bool = False) -> _Params:
+            wire: int = 0) -> _Params:
+    """The kernels' parameters; ``wire`` is ScanParams.wire: 0 off, 1 the
+    single pass's coverage test, 2 the attrs mode's sixth plane."""
     c = _Consts.of(g)
     dmax = config.sr - 1 if config.dmax is None else min(config.dmax,
                                                          config.sr - 1)
@@ -1540,26 +1557,30 @@ def solve_records(win, w0, bounds, g: ScanGeometry, config: ScanConfig,
 
 def march_exact(rec, win, w0, bounds, canch, mid, minv, g: ScanGeometry,
                 config: ScanConfig, bflag=None, raster_z: bool = False,
-                wire: bool = False):
+                wire: bool = False, min_lam: bool = False):
     """March + exact tests + colfix for one frame -> attrs (4, HPAD, WL),
-    with ``raster_z`` (5, HPAD, WL); ``wire`` gives the wireframe mode's
-    coverage (see :func:`march_exact_plain`). CPU tensors:
-    :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
+    with ``raster_z`` (5, HPAD, WL), with ``min_lam`` (6, HPAD, WL); ``wire``
+    gives the wireframe mode's coverage (see :func:`march_exact_plain`). CPU
+    tensors: :func:`march_exact_plain`; CUDA: the ``march`` kernel."""
+    if wire and min_lam:
+        raise ValueError("wire gates the coverage of a single pass; min_lam "
+                         "leaves it for the test after the merge")
     if _on_cpu(rec, win, w0, bounds, canch, mid, bflag):
         return march_exact_plain(rec, win, w0, bounds, canch, mid, minv, g,
-                                 config, bflag, raster_z, wire)
+                                 config, bflag, raster_z, wire, min_lam)
     _check(rec=(rec, _F32, (g.nbands, config.nbr, config.nrec, 8, g.cl)),
            win=(win, _F32, (3, g.rpad, g.cl)), w0=(w0, _I32, (g.nbands,)),
            bounds=(bounds, _I32, (g.nbands * g.nchunks,)),
            canch=(canch, _I32, (g.nblk,)),
            mid=(mid, _I32, (g.nbands * g.nblk,)),
            bflag=(bflag, _I32, (g.nbands,)))
-    attrs = torch.empty((n_attrs(raster_z), g.hpad, g.wl), dtype=_F32,
-                        device=rec.device)
+    attrs = torch.empty((n_attrs(raster_z, min_lam), g.hpad, g.wl),
+                        dtype=_F32, device=rec.device)
     _launch("scan_march",
             [rec.data_ptr(), win.data_ptr(), w0.data_ptr(), bounds.data_ptr(),
              canch.data_ptr(), mid.data_ptr(), _ptr(bflag), attrs.data_ptr()],
-            _params(g, config, minv=minv, raster_z=raster_z, wire=wire))
+            _params(g, config, minv=minv, raster_z=raster_z or min_lam,
+                    wire=2 if min_lam else int(wire)))
     return attrs
 
 
@@ -1630,20 +1651,18 @@ def render_frames_scan(mvps, vertex_grid, uv_grid, texture, width, height,
     other modes render the single pass, as the JAX package does).
 
     ``texture`` is the (Ht, Wt, 4) texels (quantised to 8 bits here).
+    ``uv_grid`` is only checked (:func:`check_uv_grid`: the passes rebuild
+    UVs analytically); that reads its corners back, so a caller that
+    renders one grid in many calls checks it once and passes None.
     :return: ``(frames, overflow)``: (T, HPAD, WL) int32 packed RGBA (see
         :func:`unpack_raw_frames`) and a device scalar, the most hull rows
-        ``rmax`` clipped in any frame (see :func:`warn_overflow`). Nothing
-        here waits for the device.
+        ``rmax`` clipped in any frame (see :func:`warn_overflow`). Given MVPs
+        on the host and ``uv_grid`` None or on the host, nothing here waits
+        for the device.
     """
     check_supported(config)
     if mode not in ("texture", "debug_z", "wireframe"):
         raise ValueError(f"unknown scan mode {mode!r}")
-    if mode == "wireframe" and config.row_edge:
-        raise NotImplementedError(
-            "the quality tier's wireframe mode (an attrs merge carrying the "
-            "winner's least barycentric weight) is not ported yet "
-            "(ROADMAP.md queue 1 item 1, 'The rest of the CLI and I/O "
-            "surface')")
     check_uv_grid(uv_grid)
     vertex_grid = torch.as_tensor(vertex_grid, dtype=_F32)
     dev = vertex_grid.device
@@ -1746,10 +1765,11 @@ def tier_configs(config: ScanConfig, n_r: int, n_c: int, width: int,
 
 def _scan_grouped(mvps, vertex_grid, texture, width, height,
                   config: ScanConfig, mode: str, frame_batch: int,
-                  gates=None):
+                  gates=None, min_lam: bool = False):
     """One pass over frames in groups -> (outputs, overflow): ``texture_z``
     gives ((T, HPAD, WL) int32 packed, (T, HPAD, WL) float32 raster z),
-    ``attrs`` gives (T, 5, HPAD, WL) attrs (``texture`` unused). ``gates``
+    ``attrs`` gives (T, 5, HPAD, WL) attrs (``texture`` unused), with
+    ``min_lam`` (T, 6, HPAD, WL) (see :func:`march_exact_plain`). ``gates``
     ``(bflag (T, nbands), blkflag (T, nbands, nblk))`` from
     :func:`patch_flags` restricts the pass to the flagged bands and blocks
     (the patch tier's sparse pass)."""
@@ -1764,8 +1784,8 @@ def _scan_grouped(mvps, vertex_grid, texture, width, height,
         outs = (torch.empty(plane, dtype=_I32, device=dev),
                 torch.empty(plane, dtype=_F32, device=dev))
     else:
-        outs = torch.empty((T, n_attrs(True), g.hpad, g.wl), dtype=_F32,
-                           device=dev)
+        outs = torch.empty((T, n_attrs(True, min_lam), g.hpad, g.wl),
+                           dtype=_F32, device=dev)
     overflow = torch.zeros((), dtype=torch.int64, device=dev)
     for s in range(0, T, frame_batch):
         p = prep_scan(mvps[s:s + frame_batch], vertex_grid, width, height,
@@ -1788,7 +1808,7 @@ def _scan_grouped(mvps, vertex_grid, texture, width, height,
                 rec = solve_records(*args, g, config)
                 outs[s + i] = march_exact(rec, *args, p.canch[i], p.mid[i],
                                           minv[s + i], g, config,
-                                          raster_z=True)
+                                          raster_z=True, min_lam=min_lam)
     return outs, overflow
 
 
@@ -1805,10 +1825,11 @@ def merge_row_edge_raw(rgba1, z1, rgba2, z2, width: int, height: int):
 
 
 def merge_row_edge(a1, a2, width: int, height: int):
-    """Depth merge of two passes' attrs (T, 5, HPAD, WL): pass 2's covered
-    pixels win where their raster z is strictly lower, with its analytic UVs
-    mapped back (u = 1 - v', v = 1 - u': the grid transpose swaps the
-    parameter axes). Outside the image the result is 0."""
+    """Depth merge of two passes' attrs (T, 5 or 6, HPAD, WL): pass 2's
+    covered pixels win where their raster z is strictly lower, with its
+    analytic UVs mapped back (u = 1 - v', v = 1 - u': the grid transpose
+    swaps the parameter axes; the least barycentric weight of a sixth plane
+    does not swap). Outside the image the result is 0."""
     b1 = a1[:, :, :height, :width]
     b2 = a2[:, :, :width, :height].transpose(2, 3)
     b2m = torch.cat([1.0 - b2[:, 1:2], 1.0 - b2[:, 0:1], b2[:, 2:]], dim=1)
@@ -1816,6 +1837,18 @@ def merge_row_edge(a1, a2, width: int, height: int):
     out = torch.zeros_like(a1)
     out[:, :, :height, :width] = torch.where(win2[:, None], b2m, b1)
     return out
+
+
+def wire_coverage(attrs):
+    """The wireframe test on merged attrs (T, 6, HPAD, WL) -> (T, 5, HPAD,
+    WL): coverage kept where the winner's normalised least barycentric
+    weight is at most ``common.WIREFRAME_EDGE_THRESHOLD``, divided first and
+    compared after, once, as the JAX package's ``common.shade`` tests
+    ``min_lam`` after its attrs merge."""
+    cov = (attrs[:, 3] > 0.5) & (attrs[:, 5] <= common.const(
+        common.WIREFRAME_EDGE_THRESHOLD, attrs))
+    return torch.cat([attrs[:, :3], cov[:, None].to(_F32), attrs[:, 4:5]],
+                     dim=1)
 
 
 def patch_flags(z1, width: int, height: int, nbands2: int, nblocks2: int):
@@ -1888,7 +1921,10 @@ def render_frames_scan_quality(mvps, vertex_grid, texture, width, height,
     height swapped) at ``cfg2`` (:func:`tier_configs`). In the ``texture``
     mode each pass shades itself (pass 2 samples the transposed texture) and
     the packed pixels merge by raster z (:func:`merge_row_edge_raw`); in the
-    ``debug_z`` mode the attrs merge (:func:`merge_row_edge`) and shade once.
+    ``debug_z`` and ``wireframe`` modes the attrs merge
+    (:func:`merge_row_edge`) and shade once, the wireframe's attrs carrying
+    a sixth plane, the winner's normalised least barycentric weight, tested
+    after the merge (:func:`wire_coverage`).
     """
     dev = vertex_grid.device
     n_r, n_c = vertex_grid.shape[0], vertex_grid.shape[1]
@@ -1912,11 +1948,15 @@ def render_frames_scan_quality(mvps, vertex_grid, texture, width, height,
                                          frame_batch)
             out[s:e] = merge_row_edge_raw(r1, z1, r2, z2, width, height)
         else:
+            wire = mode == "wireframe"
             a1, o1 = _scan_grouped(mvps[s:e], vertex_grid, None, width,
-                                   height, cfg1, "attrs", frame_batch)
+                                   height, cfg1, "attrs", frame_batch,
+                                   min_lam=wire)
             a2, o2 = _scan_grouped(mvps2[s:e], vgrid_t, None, height, width,
-                                   cfg2, "attrs", frame_batch)
+                                   cfg2, "attrs", frame_batch, min_lam=wire)
             merged = merge_row_edge(a1, a2, width, height)
+            if wire:
+                merged = wire_coverage(merged)
             for i in range(e - s):
                 out[s + i] = shade(merged[i], texq, g, cfg1, mode)
         overflow = torch.maximum(overflow, torch.maximum(o1, o2))

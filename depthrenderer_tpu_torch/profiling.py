@@ -14,20 +14,107 @@ with its share of the busy time. ``--tier`` profiles one of the scan's
 fidelity tiers: ``quality``, or ``patch`` with colfix 3. BASELINE preset 4
 is ``--impl scan --density 12 --width 3840 --height 2160 --edge-cull 0.25
 --frames 16``. It needs a CUDA device.
+
+Beside it, the counterparts of the JAX package's tracing tools
+(``depthrenderer_tpu/profiling.py``):
+:func:`device_trace` (a ``torch.profiler`` trace for TensorBoard or
+Perfetto), :class:`StageTimer` (named wall-clock stages, each waiting for
+its device result) and :class:`ThroughputMeter` (frames a second).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import subprocess
 import time
 
 import torch
 
+from .utils import log
+
 WIDTH, HEIGHT, DENSITY, FRAMES, WARM = 1920, 1080, 10, 64, 16
 TOP = 12   # kernels listed
 TIERS = {"quality": {"quality": True}, "patch": {"patch": True, "colfix": 3}}
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str):
+    """Trace the host and the CUDA devices with ``torch.profiler`` and write
+    a Chrome trace into ``log_dir`` (view with Perfetto or TensorBoard)::
+
+        with profiling.device_trace("/tmp/trace"):
+            frames = render_clip(...)
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    log(f"torch.profiler trace written to {path}")
+
+
+class StageTimer:
+    """Accumulating wall-clock timer of named stages::
+
+        timer = StageTimer()
+        with timer.stage("raster", block_on=frames):
+            frames = render(...)
+        timer.report()
+
+    ``block_on`` (a tensor, or a sequence of them) is waited for at the end
+    of the stage: the CUDA devices it lies on are synchronised, so the
+    stage's time covers its device work."""
+
+    def __init__(self):
+        self.totals = {}
+        self.counts = {}
+
+    @contextlib.contextmanager
+    def stage(self, name: str, block_on=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if block_on is not None:
+                tensors = (block_on if isinstance(block_on, (list, tuple))
+                           else [block_on])
+                for dev in {t.device for t in tensors
+                            if isinstance(t, torch.Tensor)}:
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self):
+        for name, total in sorted(self.totals.items(), key=lambda kv: -kv[1]):
+            n = self.counts[name]
+            log(f"[stage] {name}: {total * 1e3:.1f} ms total, "
+                f"{total / n * 1e3:.2f} ms/call over {n} calls")
+
+
+class ThroughputMeter:
+    """Frames a second of a streaming pipeline since construction."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.frames = 0
+
+    def add(self, n: int = 1):
+        self.frames += n
+
+    @property
+    def fps(self) -> float:
+        dt = time.perf_counter() - self.t0
+        return self.frames / dt if dt > 0 else 0.0
 
 
 def profile_clip(impl="pallas", tier=None, density=DENSITY, width=WIDTH,

@@ -80,6 +80,21 @@ def clip_mvps(projection, view_batch, model):
     return matmul(matmul(proj, views), model)
 
 
+def clip_scan_config(grid_n: int, width: int, height: int, colfix="auto",
+                     quality: bool = False, patch: bool = False,
+                     edge_cull_threshold: Optional[float] = None):
+    """The scan's config for a clip (see :func:`render_clip` for the
+    knobs); the batch farm's sharded path takes the same one."""
+    if quality and patch:
+        raise ValueError("quality and patch are mutually exclusive (quality "
+                         "already runs the full transposed pass that patch "
+                         "sparsifies)")
+    return raster_scan.suggest_scan_config(
+        grid_n, width, height, quality=quality, patch=patch,
+        edge_cull_threshold=edge_cull_threshold,
+        **({} if colfix == "auto" else {"colfix": colfix}))
+
+
 def tiled_config(mvps, vertex_grid, uv_grid, width, height,
                  binning_quantile: float = 0.995,
                  edge_cull_threshold: Optional[float] = None) -> RasterConfig:
@@ -157,6 +172,10 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 config = None
     elif impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; expected one of {IMPLS}")
+    if impl == "scan":
+        # Checked once, before the upload: the check reads the grid's
+        # corners, which on the card would wait for every group queued.
+        raster_scan.check_uv_grid(uvgrid)
     vgrid = vgrid.to(device)
     uvgrid = uvgrid.to(device)
     texture = mesh.texture.image.to(device)
@@ -165,15 +184,9 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     cuda = device.type == "cuda"
 
     if impl == "scan":
-        if quality and patch:
-            raise ValueError("quality and patch are mutually exclusive "
-                             "(quality already runs the full transposed "
-                             "pass that patch sparsifies)")
         if config is None:
-            config = raster_scan.suggest_scan_config(
-                n, width, height, quality=quality, patch=patch,
-                edge_cull_threshold=edge_cull_threshold,
-                **({} if colfix == "auto" else {"colfix": colfix}))
+            config = clip_scan_config(n, width, height, colfix, quality,
+                                      patch, edge_cull_threshold)
         raster_scan.check_supported(config)
         g = raster_scan.ScanGeometry.of(width, height, n, n, config)
         host_shape = (g.hpad, g.wl)
@@ -183,7 +196,7 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         def render(mvps_g):
             nonlocal overflow
             dev, ovf = raster_scan.render_frames_scan(
-                mvps_g, vgrid, uvgrid, texture, width, height, config, mode,
+                mvps_g, vgrid, None, texture, width, height, config, mode,
                 frame_batch=frame_batch)
             overflow = torch.maximum(overflow, ovf)
             return dev

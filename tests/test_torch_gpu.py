@@ -149,3 +149,127 @@ def test_soup_on_the_card_equals_the_cpu(cuda):
     oracle = ref.rasterize_reference(*args)
     oracle_c = ref.rasterize_reference(mesh.vertices.to(cuda), *args[1:])
     assert (oracle_c.cpu().int() - oracle.int()).abs().max() <= 1
+
+
+def test_yuv_pack_on_the_card_equals_the_cpu(cuda):
+    """The farm's YUV 4:2:0 pack: eager elementwise operations, nothing
+    contracted, so the card's bytes equal the CPU's."""
+    from depthrenderer_tpu_torch import io as tio
+
+    frames = torch.from_numpy(np.random.default_rng(2).integers(
+        0, 256, (4, 480, 640, 4), dtype=np.uint8))
+    on_card = tio.rgba_to_yuv420(frames.to(cuda))
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), tio.rgba_to_yuv420(frames))
+
+
+def test_sharded_scan_dispatch_waits_for_nothing(cuda):
+    """One chunk of the sharded farm's dispatch, ``render_scenes_sharded``
+    on the scan (grids on the card, UV grids checked by the caller) and the
+    YUV pack, under CUDA's sync debug mode "error": nothing in it waits for
+    the card. Its frames equal ``render_clip``'s."""
+    from depthrenderer_tpu_torch import io as tio
+    from depthrenderer_tpu_torch.parallel import render_scenes_sharded
+
+    meshes = [scene_mesh(seed) for seed in (0, 1)]
+    vgrids = [m.vertices.reshape(N, N, 3).to(cuda) for m in meshes]
+    textures = [m.texture.image.to(cuda) for m in meshes]
+    mvps = clip_mvps(scene_mvps()[:1], torch.eye(4)[None],
+                     meshes[0].transform)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        frames = render_scenes_sharded(mvps.expand(2, -1, -1, -1), vgrids,
+                                       None, textures, W, H, impl="scan",
+                                       devices=[cuda])
+        packed = [tio.rgba_to_yuv420(f) for f in frames]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for mesh, f, p in zip(meshes, frames, packed):
+        want = render_clip(mesh, scene_mvps()[:1], torch.eye(4)[None], W, H,
+                           device="cuda")
+        assert np.array_equal(f.cpu().numpy(), want)
+        assert torch.equal(p.cpu(), tio.rgba_to_yuv420(torch.from_numpy(want)))
+
+
+def test_sixth_plane_march_equals_twin(cuda):
+    """The quality tier's wireframe passes: the march's attrs with the sixth
+    plane (ml / ar, coverage ungated) against the twin's, max abs 0, for
+    both passes; the merged frames on the card against the CPU's at the
+    cross-device bar."""
+    mesh = scene_mesh()
+    cfg = rs.suggest_scan_config(N, W, H, quality=True)
+    cfg1, cfg2 = rs.tier_configs(cfg, N, N, W, H)
+    vgrid = mesh.vertices.reshape(N, N, 3)
+    mvps = scene_mvps()
+    for c, mv, vg, w, h in ((cfg1, mvps, vgrid, W, H),
+                            (cfg2, rs.swap_mvps(mvps),
+                             vgrid.transpose(0, 1).contiguous(), H, W)):
+        g = rs.ScanGeometry.of(w, h, N, N, c)
+        minv = rs.minv_rows(mv)
+        prep = rs.prep_scan(mv.to(cuda), vg.to(cuda), w, h, c)
+        for i in range(mv.shape[0]):
+            args = (prep.win[i], prep.w0[i], prep.bounds[i])
+            rec = rs.solve_records(*args, g, c)
+            margs = (rec, *args, prep.canch[i], prep.mid[i], minv[i], g, c)
+            attrs = rs.march_exact(*margs, min_lam=True)
+            assert attrs.shape[0] == 6
+            torch.testing.assert_close(
+                attrs, rs.march_exact_plain(*margs, min_lam=True), rtol=0,
+                atol=0, equal_nan=True)
+            assert 0 < float((attrs[5] > 0).float().mean())
+    uvg = mesh.texture_coordinates.reshape(N, N, 2)
+    frames = [rs.unpack_raw_frames(rs.render_frames_scan(
+        mvps, vgrid.to(dev), uvg.to(dev), mesh.texture.image.to(dev), W, H,
+        cfg, "wireframe")[0].cpu(), W, H) for dev in (cuda, "cpu")]
+    diff = np.abs(frames[0].astype(int) - frames[1].astype(int)).max(-1)
+    assert (diff == 0).mean() >= 0.999 and (diff > 1).mean() <= 0.001
+
+
+def test_batch_on_the_card_equals_render_clip(cuda, tmp_path):
+    """``batch.main`` on the card, sequential and sharded (the auto readback:
+    YUV 4:2:0 on the card), against ``render_clip`` on the card model by
+    model: the sequential AVI holds the native JPEGs of its frames, the
+    sharded one the native YUV encodes of their YUV pack."""
+    from PIL import Image
+
+    from depthrenderer_tpu_torch import batch, native
+    from depthrenderer_tpu_torch import io as tio
+    from depthrenderer_tpu_torch import video
+
+    yy, xx = np.mgrid[0:48, 0:64]
+    colour = np.stack([xx * 4, yy * 5, ((xx // 8 + yy // 8) % 2) * 200 + 27],
+                      axis=-1).astype(np.uint8)
+    Image.fromarray(colour).save(tmp_path / "scene.png")
+    models = ("ground_truth", "model_a")
+    for k, m in enumerate(models):
+        d = 120 + 90 * np.sin(xx / 64 * (6 + k)) * np.cos(yy / 48 * 4)
+        (tmp_path / "models" / m).mkdir(parents=True)
+        Image.fromarray(np.clip(d, 0, 255).astype(np.uint8)).save(
+            tmp_path / "models" / m / "scene.png")
+    frames = 8
+    for name, extra in (("seq", []), ("sharded", ["--sharded"])):
+        assert batch.main([str(tmp_path / "scene.png"),
+                           str(tmp_path / "models"), "-mesh-density", "6",
+                           "--frames", str(frames), "--no-post",
+                           "-output-path", str(tmp_path / name)] + extra) == 0
+    ld = tio.load_colour(tmp_path / "scene.png")
+    proj = tdr.Camera((64, 48), fov_y=18.0).projection
+    views = transforms.matmul(
+        transforms.translation(dz=-10.0)[None],
+        animation.default_sway(5.0).batch(animation.frame_times(frames,
+                                                                60.0)))
+    for m in models:
+        depth = tio.resize(tio.load_depth(tmp_path / "models" / m /
+                                          "scene.png"), ld.shape)
+        mesh = tdr.Mesh.from_texture(tdr.Texture(ld), depth, density=6)
+        mesh.vertices[:, 2] *= 4.0
+        want = render_clip(mesh, proj, views, 64, 48, device="cuda")
+        seq = tmp_path / "seq" / "single_videos" / "scene" / f"{m}.avi"
+        sh = tmp_path / "sharded" / "single_videos" / "scene" / f"{m}.avi"
+        assert video.read_avi_payloads(seq) == [
+            video.encode_jpeg(f[..., :3]) for f in want]
+        packed = tio.rgba_to_yuv420(torch.from_numpy(want)).numpy()
+        assert video.read_avi_payloads(sh) == [
+            native.jpeg_encode_yuv420(*tio.yuv420_planes(p, 48, 64))
+            for p in packed]

@@ -358,9 +358,22 @@ def test_render_clip_cuda_raises_without_a_card(checker_texture):
     ["--container", "mp4"], ["--overlay-noise", "32", "16"],
     ["--quality", "--mode", "wireframe"],
 ])
-def test_unported_cli_options_raise(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tcli.main(["c.png", "d.png", "--device", "cpu"] + flags)
+def test_unported_cli_options_raise(flags, tmp_path, monkeypatch):
+    """The three JAX-CLI options the port once refused now render: the MP4
+    (remuxed: no ffmpeg here), the noised depth and the quality tier's
+    wireframe."""
+    monkeypatch.setattr(tvideo.shutil, "which", lambda name: None)
+    cp, dp = _png_pair(tmp_path)
+    out = tmp_path / "out"
+    assert tcli.main([str(cp), str(dp), "--device", "cpu", "-mesh-density",
+                      "4", "--width", "64", "--height", "48", "--frames",
+                      "2", "-output-path", str(out)] + flags) == 0
+    ext = "mp4" if "mp4" in flags else "avi"
+    video = out / f"{cp.name}.{ext}"
+    assert tvideo.read_video_info(video)[:3] == (64, 48, 2)
+    frames = np.stack(tvideo.read_video_frames(video))
+    assert (frames.max(axis=-1) > 0).mean() > 0.1
+    assert not any(out.glob("*.tmp.avi"))
 
 
 @pytest.mark.parametrize("flags", [

@@ -279,6 +279,27 @@ def test_chunked_big_grid_equals_twins(emulated):
     assert rs.LAUNCHES == {"solve": 1, "march": 2, "shade": 0}
 
 
+def test_sixth_plane_march_equals_twin(emulated):
+    """The quality tier's wireframe attrs (ScanParams.wire = 2): the march
+    writes the raster z and ml / ar after it, coverage left ungated, equal
+    to the twin's; planes 0-4 equal the raster-z march's."""
+    _, mvps, vgrid, _ = scene_inputs()
+    cfg1, _ = rs.tier_configs(rs.suggest_scan_config(N, W, H, quality=True),
+                              N, N, W, H)
+    g = rs.ScanGeometry.of(W, H, N, N, cfg1)
+    prep = rs.prep_scan(mvps[1:], vgrid, W, H, cfg1)
+    args = (prep.win[0], prep.w0[0], prep.bounds[0])
+    rec = rs.solve_records(*args, g, cfg1)
+    margs = args + (prep.canch[0], prep.mid[0], rs.minv_rows(mvps[1:])[0], g,
+                    cfg1)
+    six = rs.march_exact(rec, *margs, min_lam=True)
+    assert torch.equal(six, rs.march_exact_plain(rec, *margs, min_lam=True))
+    assert torch.equal(six[:5], rs.march_exact(rec, *margs, raster_z=True))
+    cov = six[3] > 0.5
+    assert float(cov.float().mean()) > 0.3 and torch.all(six[5][~cov] == 0)
+    assert rs.LAUNCHES == {"solve": 1, "march": 2, "shade": 0}
+
+
 # ---------------------------------------------------------------------------
 # solve alone, on windows built to reach each of its cases
 # ---------------------------------------------------------------------------
