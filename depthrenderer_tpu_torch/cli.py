@@ -26,7 +26,7 @@ from pathlib import Path
 
 from . import animation as anim_mod
 from . import io as dio
-from . import transforms
+from . import profiling, transforms
 from .render import render_clip, resolve_device
 from .scene import Camera, Mesh, Texture
 from .utils import log, overlay_noise
@@ -136,6 +136,7 @@ def noised_depth(depth, scales):
     return d[..., 0]
 
 
+@profiling.spanned("cli.render_scene", root=True)
 def render_scene(colour, depth, args):
     """Everything after the image loads: mesh, camera, sway, render, encode.
 
@@ -145,6 +146,9 @@ def render_scene(colour, depth, args):
     :param args: the parsed CLI namespace (:func:`build_parser`).
     :return: dict with ``frames``, ``seconds`` (render and encode) and the
         output ``video`` / ``sample`` paths.
+
+    The call is the span ``cli.render_scene``, a request's root
+    (:mod:`.profiling`).
     """
     device = resolve_device(args.device)
     if args.overlay_noise:

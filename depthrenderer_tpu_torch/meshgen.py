@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
 from .ops.common import fma
 
 _F32 = torch.float32
@@ -99,6 +100,7 @@ def grid_mesh(depth_map, density: int, device=None):
     return vertices, uvs, grid_indices(density, dev)
 
 
+@profiling.spanned("scene.mesh_indices")
 def grid_indices(density: int, device=None):
     """Triangle indices in the reference's per-cell order: for cell (i, j),
     a = i*n + j, b = a + n, c = a + 1, d = b + 1; triangles (a, b, c),

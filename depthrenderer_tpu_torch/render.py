@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from . import profiling
 from .ops import raster_grid, raster_pallas, raster_scan, raster_soup
 from .ops.common import RasterConfig, suggest_config
 from .scene import Camera, Mesh
@@ -116,6 +117,7 @@ def tiled_config(mvps, vertex_grid, uv_grid, width, height,
     return cfg
 
 
+@profiling.spanned("render.clip", root=True)
 def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 config=None, mode: str = "texture",
                 frame_batch: int = raster_scan.FRAME_GROUP,
@@ -154,6 +156,14 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         the first left holes (with ``colfix=3`` the balanced tier).
     :return: the frame count, or the stacked (T, H, W, 4) uint8 frames when
         ``on_frames`` is None.
+
+    Spans (:mod:`.profiling`): ``render.clip`` (a request's root unless it
+    runs inside one), and under it ``render.upload`` (the grid, UVs,
+    texture and MVPs to the device), ``render.dispatch`` (each group's
+    kernels and readback queued; on the CPU its whole render),
+    ``render.wait`` (each group's event waited for) and ``render.deliver``
+    (unpack and ``on_frames``); the counter ``render.frames`` counts the
+    frames delivered.
     """
     device = resolve_device(device)
     if not mesh.is_grid:
@@ -176,10 +186,15 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         # Checked once, before the upload: the check reads the grid's
         # corners, which on the card would wait for every group queued.
         raster_scan.check_uv_grid(uvgrid)
-    vgrid = vgrid.to(device)
-    uvgrid = uvgrid.to(device)
-    texture = mesh.texture.image.to(device)
-    mvps = clip_mvps(projection, view_batch, mesh.transform)
+    with profiling.span("render.upload"):
+        vgrid = vgrid.to(device)
+        uvgrid = uvgrid.to(device)
+        texture = mesh.texture.image.to(device)
+        mvps = clip_mvps(projection, view_batch, mesh.transform)
+        if impl != "scan":
+            # One copy of the MVPs to the device before any work is queued
+            # (a later pageable copy would wait for the stream).
+            mvps = mvps.to(device)
     total = int(mvps.shape[0])
     cuda = device.type == "cuda"
 
@@ -204,9 +219,6 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         def unpack(host):
             return raster_scan.unpack_raw_frames(host, width, height)
     else:
-        # One copy of the MVPs to the device before any work is queued
-        # (a later pageable copy would wait for the stream).
-        mvps = mvps.to(device)
         if config is None:
             config = tiled_config(mvps, vgrid, uvgrid, width, height,
                                   binning_quantile, edge_cull_threshold)
@@ -225,11 +237,18 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     collected = []
 
     def deliver(start, host):
-        frames = unpack(host)
-        if on_frames is None:
-            collected.append(frames.copy())
-        else:
-            on_frames(start, frames)
+        with profiling.span("render.deliver"):
+            frames = unpack(host)
+            if on_frames is None:
+                collected.append(frames.copy())
+            else:
+                on_frames(start, frames)
+        profiling.count("render.frames", len(frames))
+
+    def wait_and_deliver(start, host, event):
+        with profiling.span("render.wait"):
+            event.synchronize()
+        deliver(start, host)
 
     # Two pinned host buffers: group k's copy lands in one while the host
     # reads group k-1 out of the other.
@@ -238,22 +257,20 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
     pending = []  # (start, host tensor, event)
     for i, start in enumerate(range(0, total, frame_batch)):
         stop = min(start + frame_batch, total)
-        dev = render(mvps[start:stop])
+        with profiling.span("render.dispatch"):
+            dev = render(mvps[start:stop])
+            if cuda:
+                host = hosts[i % 2][:stop - start]
+                host.copy_(dev, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                pending.append((start, host, event))
         if not cuda:
             deliver(start, dev)
-            continue
-        host = hosts[i % 2][:stop - start]
-        host.copy_(dev, non_blocking=True)
-        event = torch.cuda.Event()
-        event.record()
-        pending.append((start, host, event))
-        if len(pending) > 1:
-            s, h, e = pending.pop(0)
-            e.synchronize()
-            deliver(s, h)
-    for s, h, e in pending:
-        e.synchronize()
-        deliver(s, h)
+        elif len(pending) > 1:
+            wait_and_deliver(*pending.pop(0))
+    for group in pending:
+        wait_and_deliver(*group)
     if impl == "scan":
         raster_scan.warn_overflow(overflow, config)
     if on_frames is None:

@@ -14,9 +14,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from . import meshgen
+from . import meshgen, profiling
 from .transforms import Axis
-from .utils import FrameTimer, log
+from .utils import log
 
 
 class Texture:
@@ -82,25 +82,26 @@ class Mesh:
     def from_texture(texture: Texture, depth_map=None, density=0, debug=False,
                      device=None):
         """The depth-displaced grid mesh (reference ``render.py:464-545``);
-        with no depth map every z is 1."""
+        with no depth map every z is 1. The build is the span
+        ``scene.mesh_build``; the index list's part of it, the span
+        ``scene.mesh_indices`` (:mod:`.profiling`)."""
         if density % 1 != 0 or density < 0:
             raise ValueError(
                 f"Density must be a non-negative whole number, got {density}.")
         if debug:
             log("Generating mesh...")
-        timer = FrameTimer()
-        if depth_map is None:
-            n = meshgen.grid_vertex_count(int(density))
-            depth_map = np.zeros((n, n), dtype=np.uint8)
-        vertices, uvs, indices = meshgen.grid_mesh(depth_map, int(density),
-                                                   device=device)
-        mesh = Mesh(texture, vertices, uvs, indices,
-                    grid_density=int(density), device=device)
+        with profiling.span("scene.mesh_build") as build:
+            if depth_map is None:
+                n = meshgen.grid_vertex_count(int(density))
+                depth_map = np.zeros((n, n), dtype=np.uint8)
+            vertices, uvs, indices = meshgen.grid_mesh(
+                depth_map, int(density), device=device)
+            mesh = Mesh(texture, vertices, uvs, indices,
+                        grid_density=int(density), device=device)
         if debug:
             log(f"Num. triangles: {mesh.num_triangles:,d}")
             log(f"Num. vertices: {len(mesh.vertices):,d}")
-            timer.update()
-            log(f"Mesh Generation Took {1000 * timer.delta:.2f} ms")
+            log(f"Mesh Generation Took {build.ms:.2f} ms")
         return mesh
 
     @staticmethod

@@ -19,6 +19,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
+from . import profiling
 from .io import save_image
 from .utils import log
 from .video import AviFile, convert_to_mp4
@@ -107,17 +108,27 @@ class VideoWriter:
 class AsyncVideoWriter(VideoWriter):
     """A :class:`VideoWriter` fed by one encoder thread through a bounded
     queue; an encoder error stops the writes and surfaces on the next
-    :meth:`write` or on :meth:`cleanup`."""
+    :meth:`write` or on :meth:`cleanup`.
+
+    Spans and counters (:mod:`.profiling`): ``writer.frames`` counts the
+    frames handed over; ``writer.encode`` times each frame's encode on the
+    encoder thread; ``writer.put_wait`` times the caller blocked on a full
+    queue; ``writer.drain`` times :meth:`cleanup`'s wait for the queue to
+    drain. The encoder thread keeps its spans when the writer was made
+    while tracing was on."""
 
     def __init__(self, path, size, fps=24, codec="MJPG", quality=92,
                  max_queue=64):
         super().__init__(path, size, fps=fps, codec=codec, quality=quality)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._error = None
-        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread = threading.Thread(target=self._run,
+                                        args=(profiling.context(),),
+                                        daemon=True)
         self._thread.start()
 
-    def _run(self):
+    def _run(self, trace_context):
+        profiling.adopt(trace_context)
         while True:
             item = self._queue.get()
             if item is None:
@@ -125,28 +136,38 @@ class AsyncVideoWriter(VideoWriter):
             if self._error is not None:
                 continue  # drain; the error surfaces in write/cleanup
             try:
-                if isinstance(item, tuple):
-                    self.writer.write_yuv420(*item)
-                else:
-                    self.writer.write(item)
+                with profiling.span("writer.encode"):
+                    if isinstance(item, tuple):
+                        self.writer.write_yuv420(*item)
+                    else:
+                        self.writer.write(item)
             except Exception as e:  # noqa: BLE001 - surfaced on cleanup
                 self._error = e
+
+    def _put(self, item):
+        """Queue a frame; time the wait only when the queue is full."""
+        profiling.count("writer.frames")
+        try:
+            self._queue.put_nowait(item)
+        except queue.Full:
+            with profiling.span("writer.put_wait"):
+                self._queue.put(item)
 
     def write(self, frame):
         if self._error is not None:
             raise self._error
-        self._queue.put(_to_host_uint8(frame).copy())
+        self._put(_to_host_uint8(frame).copy())
 
     def write_yuv420(self, y, cb, cr):
         if self._error is not None:
             raise self._error
         # Copies, so callers may reuse their planes at once.
-        self._queue.put(tuple(np.array(p, dtype=np.uint8)
-                              for p in (y, cb, cr)))
+        self._put(tuple(np.array(p, dtype=np.uint8) for p in (y, cb, cr)))
 
     def cleanup(self):
-        self._queue.put(None)
-        self._thread.join()
+        with profiling.span("writer.drain"):
+            self._queue.put(None)
+            self._thread.join()
         if self._error is not None:
             self.writer.close()
             raise self._error
