@@ -21,6 +21,13 @@ and the encoder takes the planes; the PNG snapshots still read full RGBA,
 only for the frames that are due. Both paths render each model with the
 same per-model config, so for the scan their AVIs are byte-identical.
 
+Spans and counters (:mod:`.profiling`): ``batch.farm`` (a job's root: the
+encoder threads' ``writer.*`` spans carry its request id), and on the
+sharded path ``batch.dispatch`` (each chunk's render, pack and copies
+queued) and ``batch.snapshot_read`` (a due snapshot's RGBA read back on
+the YUV path); the counter ``batch.frames`` counts the model-frames handed
+to the writers.
+
 Usage::
 
     python -m depthrenderer_tpu_torch.batch <colour image> <depth-maps dir> \\
@@ -41,7 +48,7 @@ import torch
 
 from . import animation as anim_mod
 from . import io as dio
-from . import postprocess, transforms
+from . import postprocess, profiling, transforms
 from .ops import raster_grid, raster_scan
 from .parallel import default_devices, device_blocks, render_scenes_sharded
 from .render import (_auto_impl, _grid_arrays, clip_mvps, clip_scan_config,
@@ -199,6 +206,7 @@ def farm_views(fps: float, num_frames=None):
                              sway.batch(times))
 
 
+@profiling.spanned("batch.farm", root=True)
 def run_farm(args) -> dict:
     """The farm for parsed arguments (:func:`build_parser`) -> ``{"models",
     "videos", "frames": frames rendered, "seconds": render and encode}``."""
@@ -311,6 +319,7 @@ def _render_sequential(args, model_name, mesh, camera, views, out_w, out_h,
         for k in range(frames.shape[0]):
             video_writer.write(frames[k])
             png_task(frames[k], start + k)
+        profiling.count("batch.frames", frames.shape[0])
 
     log(f"[{model_name}] rendering {len(views)} frames at {out_w}x{out_h}...")
     t0 = time.perf_counter()
@@ -421,6 +430,11 @@ def _render_sharded(args, model_names, meshes, camera, views, impl, out_w,
              for _ in range(2)] if cuda else None
     overflow = []
 
+    def snapshot(frame):
+        """A due snapshot's RGBA, read back to the host."""
+        with profiling.span("batch.snapshot_read"):
+            return frame.cpu().numpy()
+
     def consume(start, stop, dev_frames, host, events):
         for s in range(S):
             if events:
@@ -430,32 +444,35 @@ def _render_sharded(args, model_names, meshes, camera, views, impl, out_w,
                 if yuv:
                     writers[s].write_yuv420(
                         *dio.yuv420_planes(frames[k], out_h, out_w))
-                    tasks[s](lambda s=s, k=k: dev_frames[s][k].cpu().numpy(),
+                    tasks[s](lambda s=s, k=k: snapshot(dev_frames[s][k]),
                              start + k)
                 else:
                     writers[s].write(frames[k])
                     tasks[s](frames[k], start + k)
+        profiling.count("batch.frames", S * (stop - start))
 
     try:
         pending = None
         for i, start in enumerate(range(0, len(mvps), chunk)):
             stop = min(start + chunk, len(mvps))
-            dev_frames, ovf = render_scenes_sharded(
-                mvps[start:stop].expand(S, -1, -1, -1), vgrids, uvgrids,
-                textures, out_w, out_h, config, frame_batch=chunk, impl=impl,
-                scan_config=scan_config, devices=devices, with_overflow=True)
-            overflow += [o for o in ovf if o is not None]
-            packed = [dio.rgba_to_yuv420(f) if yuv else f
-                      for f in dev_frames]
-            if cuda:
-                host, events = [h[:stop - start] for h in hosts[i % 2]], []
-                for s in range(S):
-                    with torch.cuda.device(owner[s]):
-                        host[s].copy_(packed[s], non_blocking=True)
-                        events.append(torch.cuda.Event())
-                        events[-1].record()
-            else:
-                host, events = packed, None
+            with profiling.span("batch.dispatch"):
+                dev_frames, ovf = render_scenes_sharded(
+                    mvps[start:stop].expand(S, -1, -1, -1), vgrids, uvgrids,
+                    textures, out_w, out_h, config, frame_batch=chunk,
+                    impl=impl, scan_config=scan_config, devices=devices,
+                    with_overflow=True)
+                overflow += [o for o in ovf if o is not None]
+                packed = [dio.rgba_to_yuv420(f) if yuv else f
+                          for f in dev_frames]
+                if cuda:
+                    host, events = [h[:stop - start] for h in hosts[i % 2]], []
+                    for s in range(S):
+                        with torch.cuda.device(owner[s]):
+                            host[s].copy_(packed[s], non_blocking=True)
+                            events.append(torch.cuda.Event())
+                            events[-1].record()
+                else:
+                    host, events = packed, None
             if pending is not None:
                 consume(*pending)
             pending = (start, stop, dev_frames, host, events)
