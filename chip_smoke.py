@@ -5,9 +5,10 @@
 Phases (each prints one line; any failure exits non-zero with its traceback):
 
 1. ``env``: the card (nvidia-smi), torch, CUDA and nvcc versions; builds the
-   scan kernels (csrc/scan.cu), the pair kernel (csrc/pair.cu), one nvcc each,
-   started together, and the native encoders (csrc/frameops.c) from the
-   checkout, and prints each build's seconds.
+   scan kernels (csrc/scan.cu), the pair kernel (csrc/pair.cu), the JPEG
+   kernels (csrc/jpeg.cu), one nvcc each, started together, and the native
+   encoders (csrc/frameops.c) from the checkout, and prints each build's
+   seconds.
 2. ``kernels_vs_plain`` and ``kernel_times``: the scan kernels against their
    plain PyTorch twins on a seeded synthetic 640x480 colour + depth scene at
    mesh density 10 rendered at 1920x1080 with the shipped scan config, two
@@ -19,8 +20,15 @@ Phases (each prints one line; any failure exits non-zero with its traceback):
    call); ptxas's report of the march's instances and of the solve kernel
    (registers, spill and stack bytes).
 3. ``main_path``: ``cli.render_scene`` (the scan) on the same arrays for one
-   sway loop (300 frames at 60 fps) into an MJPG AVI and ``sample_frame.png``,
-   with the launch counters set to 0 just before and read just after.
+   sway loop (300 frames at 60 fps) into an MJPG AVI (its frames encoded on
+   the card) and ``sample_frame.png``, with the launch counters set to 0
+   just before and read just after: every scan and JPEG kernel launched.
+   ``jpeg_vs_host``: one 16-frame group of the same clip in the scan's raw
+   layout through the JPEG kernels: the coefficients equal the twin's
+   (``jpeg.coefficients_plain``), each frame's payload
+   ``native.jpeg_encode``'s byte for byte; the group's time (CUDA events,
+   20 groups) against its bound (the RGBA read once and the JPEG written
+   once) and the host encoder's, and ptxas's report of the six kernels.
 4. ``tiled_kernel_vs_plain``: the pair kernel (on the group's plane
    tables) against ``raster_pairs_plain`` (on the windows gathered out of
    them, frame by frame) on the first kernel launch of the tiled CLI run
@@ -188,6 +196,7 @@ import argparse
 import contextlib
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -246,7 +255,13 @@ KERNELS = {
               "depthrenderer_tpu/ops/raster_scan.py:815"),
     "pairs": ("depthrenderer_tpu_torch/csrc/pair.cu",
               "depthrenderer_tpu/ops/raster_pallas.py:184"),
+    # The six launches of a frame group, as one entry.
+    "jpeg": ("depthrenderer_tpu_torch/csrc/jpeg.cu",
+             "none: the JAX package encodes on the host "
+             "(depthrenderer_tpu_torch/csrc/frameops.c:386)"),
 }
+# Frames of the JPEG phase's group: the main path's frame batch.
+JPEG_GROUP = 16
 # The probe kernels (csrc/probes.cu) and the case whose numbers each one's
 # JSON entry carries; their "replaces" lists every experiments/ pallas_call
 # site the kernel stands for (from the case registry).
@@ -333,6 +348,7 @@ def build_all():
     """Build every kernel source and the encoders, all started together;
     -> {name: seconds}."""
     from depthrenderer_tpu_torch import native, probes
+    from depthrenderer_tpu_torch.ops import jpeg
     from depthrenderer_tpu_torch.ops import raster_scan as rs
     from depthrenderer_tpu_torch.ops import tiled
 
@@ -342,7 +358,8 @@ def build_all():
         return time.perf_counter() - t0
 
     jobs = {"scan": rs.build_kernels, "pair": tiled.build_kernels,
-            "probes": probes.build_kernels, "frameops": native.build}
+            "probes": probes.build_kernels, "jpeg": jpeg.build_kernels,
+            "frameops": native.build}
     with ThreadPoolExecutor(len(jobs)) as ex:
         futures = {k: ex.submit(timed, fn) for k, fn in jobs.items()}
         return {k: f.result() for k, f in futures.items()}
@@ -612,13 +629,16 @@ def render_fps(mesh, projection, frames, warm, width=WIDTH, height=HEIGHT,
 def scan_main_path(colour, depth, scene, frames, tmp):
     """Phase 3: the scan's CLI body, launch counters read around it."""
     from depthrenderer_tpu_torch import cli
+    from depthrenderer_tpu_torch.ops import jpeg
     from depthrenderer_tpu_torch.ops import raster_scan as rs
 
     mesh, projection = scene[:2]
     fps = render_fps(mesh, projection, frames, 16)
     rs.reset_launch_counts()
+    jpeg.reset_launch_counts()
     result = cli.render_scene(colour, depth, cli_args(tmp / "scan", frames))
-    launches = dict(rs.LAUNCHES)
+    launches = {**rs.LAUNCHES,
+                **{f"jpeg_{k}": v for k, v in jpeg.LAUNCHES.items()}}
     for name, count in launches.items():
         if count <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
@@ -629,6 +649,60 @@ def scan_main_path(colour, depth, scene, frames, tmp):
           incl_encode_fps=f"{frames / result['seconds']:.2f}",
           avi_bytes=avi, sample_png_bytes=png)
     return launches
+
+
+def jpeg_phase(scene, dev):
+    """Phase 3b: the JPEG kernels on one frame group of the main path (the
+    scan's raw layout, the CLI's config and quality) against the host: the
+    coefficients equal the twin's, each payload ``native.jpeg_encode``'s;
+    the group timed with CUDA events beside the host encoder."""
+    from depthrenderer_tpu_torch import native
+    from depthrenderer_tpu_torch.march_times import bound
+    from depthrenderer_tpu_torch.ops import cuda_build, jpeg
+    from depthrenderer_tpu_torch.ops import raster_scan as rs
+    from depthrenderer_tpu_torch.render import clip_mvps, clip_scan_config
+    from depthrenderer_tpu_torch.video import JPEG_QUALITY
+
+    mesh, projection, vgrid, _, texture = scene
+    mvps = clip_mvps(projection, clip_views(300)[:JPEG_GROUP],
+                     mesh.transform)
+    cfg = clip_scan_config(vgrid.shape[0], WIDTH, HEIGHT)
+    raw, _ = rs.render_frames_scan(mvps, vgrid, None, texture, WIDTH, HEIGHT,
+                                   cfg, "texture", frame_batch=JPEG_GROUP)
+    enc = jpeg.Encoder(JPEG_GROUP, WIDTH, HEIGHT)
+    out = torch.empty(enc.out_bytes(JPEG_GROUP), dtype=torch.uint8,
+                      device=dev)
+    offsets, _ = enc.encode(raw, out)
+    o = offsets.tolist()
+    data = out[:o[-1]].cpu().numpy()
+    host = rs.unpack_raw_frames(raw.cpu(), WIDTH, HEIGHT)
+    coef = enc.scratch(dev)["coef"].cpu().numpy()
+    twin = jpeg.coefficients_plain(host, jpeg.tables(JPEG_QUALITY))
+    if not np.array_equal(coef, twin):
+        raise AssertionError(f"{int((coef != twin).sum())} coefficients "
+                             "differ between the JPEG kernels and the twin")
+    t0 = time.perf_counter()
+    want = [native.jpeg_encode(f[..., :3], JPEG_QUALITY) for f in host]
+    host_ms = (time.perf_counter() - t0) * 1e3
+    bad = [k for k in range(JPEG_GROUP)
+           if data[o[k]:o[k + 1]].tobytes() != want[k]]
+    if bad:
+        raise AssertionError(f"frames {bad} of the group: the card's JPEG "
+                             "differs from native.jpeg_encode's")
+    ms = cuda_ms(lambda: enc.encode(raw, out), 20)
+    bound_ms, bound_by = bound(JPEG_GROUP * WIDTH * HEIGHT * 4 + o[-1], 0)
+    usage = cuda_build.ptxas_usage(cuda_build.library_path("jpeg.cu"))
+    phase("jpeg_vs_host", frames=JPEG_GROUP, payloads_equal=True,
+          coefficients_equal=True, jpeg_bytes=o[-1],
+          ms_per_group=f"{ms:.4f}", bound_ms=f"{bound_ms:.4f}",
+          host_ms_per_group=f"{host_ms:.1f}",
+          **{m.group(0): f"{u['registers']}regs/{u['spill_stores']}B_spill/"
+                         f"{u['stack']}B_stack/{u['smem']}B_smem"
+             for k, u in usage.items()
+             if (m := re.search(r"jpeg_[a-z]+_kernel", k))})
+    # No library JPEG encoder is installed beside PyTorch on the card.
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": host_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
 
 
 def tiled_phase(scene, dev):
@@ -2055,6 +2129,9 @@ def main(argv=None):
         scan_launches = scan_main_path(colour, depth, scene, args.frames, tmp)
         seconds["main_path"] = time.perf_counter() - t0
         t0 = time.perf_counter()
+        results["jpeg"] = jpeg_phase(scene, dev)
+        seconds["jpeg"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
         tiled_cfg, group, results["pairs"] = tiled_phase(scene, dev)
         seconds["tiled_kernel"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -2102,7 +2179,8 @@ def main(argv=None):
     phase("seconds", **{k: f"{v:.1f}" for k, v in seconds.items()},
           total=f"{time.perf_counter() - t_all:.1f}")
 
-    launches = dict(scan_launches, pairs=pair_launches, **probe_launches)
+    launches = dict(scan_launches, pairs=pair_launches,
+                    jpeg=scan_launches["jpeg_dct"], **probe_launches)
     print(json.dumps(kernel_table(results, launches)), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,8 +10,11 @@ Defaults as the reference (fps 60, density 8, displacement 4.0, fov_y 18,
 camera at dz=-10, 5-second composed sway, 3 loops, sample frame at frame 10,
 ``<image name>.avi``). Frames render on the GPU through the scan kernels by
 default, or through the tiled rasteriser's pair kernel with ``--impl pallas``
-or ``--impl grid``; ``--device cpu`` runs the plain PyTorch passes. The
-scan's fidelity tiers: ``--quality``, and ``--patch --colfix 3`` (balanced).
+or ``--impl grid``; ``--device cpu`` runs the plain PyTorch passes. On the
+card an MJPG video's frames are JPEG-encoded there too (:mod:`.ops.jpeg`,
+the host encoder's bytes); ``--device cpu`` and ``DIB `` encode on the
+host. The scan's fidelity tiers: ``--quality``, and ``--patch --colfix 3``
+(balanced).
 ``--container mp4`` remuxes the AVI's JPEG payloads into an MP4 (H.264 when
 ffmpeg is on the host); ``--overlay-noise`` overlays Perlin noise on the
 depth map, one seed-0 layer a scale, as the reference's depth augmentation.
@@ -185,12 +188,23 @@ def render_scene(colour, depth, args):
                                         fps=args.fps, codec=args.codec)
     sample_path = os.path.join(args.output_path, "sample_frame.png")
     wrote_sample = False
+    # MJPG on the card: the frames are encoded there, and only the frames
+    # the PNGs need come back as RGBA.
+    card_jpeg = (video_writer is not None and device.type == "cuda"
+                 and args.codec == "MJPG")
+    png_frames = {min(SAMPLE_FRAME_INDEX, num_frames - 1)}
+    if args.png_every:
+        png_frames |= set(range(0, num_frames, args.png_every))
+
+    def on_jpeg(start, payloads):
+        for payload in payloads:
+            video_writer.write_jpeg(payload)
 
     def on_frames(start, frames):
         nonlocal wrote_sample
         for k in range(frames.shape[0]):
             idx = start + k
-            if video_writer is not None:
+            if video_writer is not None and not card_jpeg:
                 video_writer.write(frames[k])
             if not wrote_sample and idx >= min(SAMPLE_FRAME_INDEX,
                                                num_frames - 1):
@@ -212,7 +226,9 @@ def render_scene(colour, depth, args):
                     on_frames=on_frames, colfix=colfix, device=device,
                     impl=args.impl, binning_quantile=args.binning_quantile,
                     edge_cull_threshold=args.edge_cull,
-                    quality=args.quality, patch=args.patch)
+                    quality=args.quality, patch=args.patch,
+                    on_jpeg=on_jpeg if card_jpeg else None,
+                    rgba_frames=png_frames)
     finally:
         if video_writer is not None:
             video_writer.cleanup()

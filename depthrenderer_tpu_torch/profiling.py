@@ -18,7 +18,7 @@ open, and every span under it, in its thread or an adopting one, carries
 its id. At most ``MAX_KEPT`` spans are kept; past that they are counted in
 ``profiling.dropped``. :func:`snapshot` returns the totals, the counters,
 the kernels' launch counters (``raster_scan.LAUNCHES``, ``tiled.LAUNCHES``,
-``probes.LAUNCHES``, of the modules loaded) and the kept spans;
+``jpeg.LAUNCHES``, ``probes.LAUNCHES``, of the modules loaded) and the kept spans;
 :func:`reset` clears the recorder (the launch counters keep their own
 ``reset_launch_counts``).
 
@@ -93,7 +93,8 @@ def device_trace(log_dir: str):
 MAX_KEPT = 65_536
 DROPPED = "profiling.dropped"
 LAUNCH_MODULES = tuple(f"{__package__}.{m}"
-                       for m in ("ops.raster_scan", "ops.tiled", "probes"))
+                       for m in ("ops.raster_scan", "ops.tiled", "ops.jpeg",
+                                 "probes"))
 _profiler_on = torch.autograd._profiler_enabled
 
 

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from . import profiling
-from .ops import raster_grid, raster_pallas, raster_scan, raster_soup
+from .ops import jpeg, raster_grid, raster_pallas, raster_scan, raster_soup
 from .ops.common import RasterConfig, suggest_config
 from .scene import Camera, Mesh
 from .transforms import matmul
@@ -125,7 +125,9 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 colfix="auto", device="cuda", impl: str = "auto",
                 binning_quantile: float = 0.995,
                 edge_cull_threshold: Optional[float] = None,
-                quality: bool = False, patch: bool = False):
+                quality: bool = False, patch: bool = False,
+                on_jpeg: Optional[Callable[[int, list], None]] = None,
+                rgba_frames=()):
     """Render a clip of a grid mesh.
 
     :param mesh: a grid :class:`Mesh` (its tensors move to ``device``).
@@ -154,18 +156,30 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         full transposed second pass, merged by depth.
     :param patch: the scan's patch tier: a transposed second pass only where
         the first left holes (with ``colfix=3`` the balanced tier).
+    :param on_jpeg: the sink for encoded frames: ``(start_index,
+        payloads)`` per group, one baseline JPEG (bytes) a frame at the
+        video writers' quality (``video.JPEG_QUALITY``), byte for byte
+        ``native.jpeg_encode``'s. The group is encoded on the card
+        (:mod:`.ops.jpeg`; a CPU device raises ``ValueError``) and only its
+        JPEG bytes are read back, with RGBA only for the indices in
+        ``rgba_frames``: ``on_frames`` then gets those alone, one a call.
     :return: the frame count, or the stacked (T, H, W, 4) uint8 frames when
-        ``on_frames`` is None.
+        ``on_frames`` and ``on_jpeg`` are None.
 
     Spans (:mod:`.profiling`): ``render.clip`` (a request's root unless it
     runs inside one), and under it ``render.upload`` (the grid, UVs,
     texture and MVPs to the device), ``render.dispatch`` (each group's
     kernels and readback queued; on the CPU its whole render),
     ``render.wait`` (each group's event waited for) and ``render.deliver``
-    (unpack and ``on_frames``); the counter ``render.frames`` counts the
-    frames delivered.
+    (unpack and ``on_frames``, or the JPEG bytes gathered and ``on_jpeg``);
+    the counter
+    ``render.frames`` counts the frames delivered, and ``jpeg.frames`` those
+    encoded on the card.
     """
     device = resolve_device(device)
+    if on_jpeg is not None and device.type != "cuda":
+        raise ValueError("on_jpeg encodes on the card; on the CPU encode the "
+                         "frames on_frames delivers")
     if not mesh.is_grid:
         raise ValueError("render_clip requires a grid mesh (MeshRenderer "
                          "renders any mesh)")
@@ -235,6 +249,15 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
             return host.numpy()
 
     collected = []
+    # On the card: two pinned host buffers, group k's copy lands in one
+    # while the host reads group k-1 out of the other; or, with a JPEG
+    # sink, the group's JPEG bytes and its named RGBA frames.
+    card_jpeg = None
+    if cuda and on_jpeg is not None:
+        card_jpeg = _CardJpeg(frame_batch, width, height, device)
+    elif cuda:
+        hosts = [torch.empty((frame_batch,) + host_shape, dtype=host_dtype,
+                             pin_memory=True) for _ in range(2)]
 
     def deliver(start, host):
         with profiling.span("render.deliver"):
@@ -245,26 +268,34 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
                 on_frames(start, frames)
         profiling.count("render.frames", len(frames))
 
-    def wait_and_deliver(start, host, event):
+    def deliver_jpeg(start, copy):
+        with profiling.span("render.deliver"):
+            payloads, named = card_jpeg.collect(copy)
+            on_jpeg(start, payloads)
+            if on_frames is not None:
+                for idx, host in named:
+                    on_frames(idx, unpack(host[None]))
+        profiling.count("render.frames", len(payloads))
+
+    def wait_and_deliver(start, event, group):
         with profiling.span("render.wait"):
             event.synchronize()
-        deliver(start, host)
+        (deliver if card_jpeg is None else deliver_jpeg)(start, group)
 
-    # Two pinned host buffers: group k's copy lands in one while the host
-    # reads group k-1 out of the other.
-    hosts = ([torch.empty((frame_batch,) + host_shape, dtype=host_dtype,
-                          pin_memory=True) for _ in range(2)] if cuda else [])
-    pending = []  # (start, host tensor, event)
+    pending = []  # (start, event, the group's host copies)
     for i, start in enumerate(range(0, total, frame_batch)):
         stop = min(start + frame_batch, total)
         with profiling.span("render.dispatch"):
             dev = render(mvps[start:stop])
+            if card_jpeg is not None:
+                group = card_jpeg.dispatch(i, start, dev, rgba_frames)
+            elif cuda:
+                group = hosts[i % 2][:stop - start]
+                group.copy_(dev, non_blocking=True)
             if cuda:
-                host = hosts[i % 2][:stop - start]
-                host.copy_(dev, non_blocking=True)
                 event = torch.cuda.Event()
                 event.record()
-                pending.append((start, host, event))
+                pending.append((start, event, group))
         if not cuda:
             deliver(start, dev)
         elif len(pending) > 1:
@@ -273,9 +304,70 @@ def render_clip(mesh: Mesh, projection, view_batch, width, height,
         wait_and_deliver(*group)
     if impl == "scan":
         raster_scan.warn_overflow(overflow, config)
-    if on_frames is None:
+    if on_frames is None and on_jpeg is None:
         return np.concatenate(collected, axis=0)
     return total
+
+
+class _CardJpeg:
+    """``render_clip``'s card encoder: each group's frames become JPEG
+    bytes on the card (:class:`.ops.jpeg.Encoder`, two output buffers in
+    turn), copied into pinned memory before the group's event, with the
+    RGBA of the frames the caller names. The copy takes ``est`` bytes, the
+    most a group is expected to need (0.5 byte a pixel, then 1.25 times the
+    largest group seen); a group that needs more has the rest copied when
+    it is collected, from its own buffer, which the next group does not
+    write."""
+
+    START_BYTES_PER_PIXEL = 0.5
+
+    def __init__(self, frame_batch, width, height, device):
+        self.encoder = jpeg.Encoder(frame_batch, width, height)
+        # Made before any group is queued: the tables' upload is a pageable
+        # copy, which would wait for the stream.
+        self.encoder.scratch(device)
+        self.outs = [torch.empty(self.encoder.out_bytes(frame_batch),
+                                 dtype=torch.uint8, device=device)
+                     for _ in range(2)]
+        self.hosts = [None, None]
+        self.est = frame_batch * (len(self.encoder.geom.hdr) + int(
+            width * height * self.START_BYTES_PER_PIXEL))
+
+    def dispatch(self, i, start, frames, rgba_frames):
+        """Queue group ``i``'s encode and copies (its frames are ``start``
+        on) -> what :meth:`collect` takes once the group's event has
+        passed."""
+        named = []
+        for idx in range(start, start + frames.shape[0]):
+            if idx in rgba_frames:
+                host = torch.empty(frames.shape[1:], dtype=frames.dtype,
+                                   pin_memory=True)
+                host.copy_(frames[idx - start], non_blocking=True)
+                named.append((idx, host))
+        k = i % 2
+        offsets, out = self.encoder.encode(frames, self.outs[k])
+        n = min(self.est, out.numel())
+        if self.hosts[k] is None or self.hosts[k].numel() < n:
+            self.hosts[k] = torch.empty(n, dtype=torch.uint8,
+                                        pin_memory=True)
+        host = self.hosts[k]
+        host[:n].copy_(out[:n], non_blocking=True)
+        host_offsets = torch.empty(offsets.shape, dtype=torch.int64,
+                                   pin_memory=True)
+        host_offsets.copy_(offsets, non_blocking=True)
+        return out, host, n, host_offsets, named
+
+    def collect(self, copy):
+        """-> the group's payloads (one bytes a frame) and its named frames
+        ``[(index, pinned RGBA)]``."""
+        out, host, n, host_offsets, named = copy
+        o = host_offsets.tolist()
+        data = host.numpy()
+        if o[-1] > n:
+            data = np.concatenate([data[:n], out[n:o[-1]].cpu().numpy()])
+        self.est = max(self.est, -(-o[-1] * 5 // 4))
+        return ([data[o[k]:o[k + 1]].tobytes() for k in range(len(o) - 1)],
+                named)
 
 
 class MeshRenderer:

@@ -24,11 +24,15 @@ import numpy as np
 
 from . import native
 
+# The JPEG quality of MJPG frames unless a writer is given another; the
+# card's encoder (:mod:`.ops.jpeg`) writes the CLI's frames at it.
+JPEG_QUALITY = 92
+
 _AVIF_HASINDEX = 0x00000010
 _AVIIF_KEYFRAME = 0x00000010
 
 
-def encode_jpeg(rgb, quality: int = 92) -> bytes:
+def encode_jpeg(rgb, quality: int = JPEG_QUALITY) -> bytes:
     """One baseline JPEG frame (4:2:0, Annex K tables) from the native
     encoder."""
     return native.jpeg_encode(rgb, quality=quality)
@@ -341,7 +345,8 @@ class AviFile:
     header counts and writes the index.
     """
 
-    def __init__(self, path, size, fps=24.0, codec="MJPG", quality=92):
+    def __init__(self, path, size, fps=24.0, codec="MJPG",
+                 quality=JPEG_QUALITY):
         if codec not in ("MJPG", "DIB "):
             raise ValueError(f"Unsupported codec {codec!r}")
         self.path = str(path)
@@ -426,6 +431,16 @@ class AviFile:
                 f"fit a {self.width}x{self.height} frame")
         self._append_chunk(native.jpeg_encode_yuv420(y, cb, cr,
                                                      quality=self.quality))
+
+    def write_jpeg(self, payload: bytes):
+        """Append one frame already encoded as a JPEG (MJPG only), as
+        :meth:`write` would have encoded it: ``jpeg_encode`` at this file's
+        quality, or the card's encoder (:mod:`.ops.jpeg`)."""
+        if self._closed:
+            raise ValueError("AviFile already closed.")
+        if self.codec != "MJPG":
+            raise ValueError("write_jpeg needs the MJPG codec")
+        self._append_chunk(payload)
 
     def _append_chunk(self, payload: bytes):
         chunk_id = b"00db" if self.codec == "DIB " else b"00dc"

@@ -22,7 +22,7 @@ import numpy as np
 from . import profiling
 from .io import save_image
 from .utils import log
-from .video import AviFile, convert_to_mp4
+from .video import JPEG_QUALITY, AviFile, convert_to_mp4
 
 
 def _to_host_uint8(frame):
@@ -69,7 +69,8 @@ class VideoWriter:
     :meth:`cleanup` converts. If the conversion fails the AVI is kept as
     ``<name>.avi`` (and ``path`` updated) with a warning."""
 
-    def __init__(self, path, size, fps=24, codec="MJPG", quality=92):
+    def __init__(self, path, size, fps=24, codec="MJPG",
+                 quality=JPEG_QUALITY):
         self.path = str(path)
         os.makedirs(os.path.dirname(os.path.abspath(self.path)),
                     exist_ok=True)
@@ -89,6 +90,11 @@ class VideoWriter:
         """Append a frame given as planar YUV 4:2:0
         (:meth:`.video.AviFile.write_yuv420`)."""
         self.writer.write_yuv420(y, cb, cr)
+
+    def write_jpeg(self, payload: bytes):
+        """Append a frame already encoded as a JPEG at the writer's quality
+        (:meth:`.video.AviFile.write_jpeg`)."""
+        self.writer.write_jpeg(payload)
 
     def cleanup(self):
         self.writer.close()
@@ -111,14 +117,15 @@ class AsyncVideoWriter(VideoWriter):
     :meth:`write` or on :meth:`cleanup`.
 
     Spans and counters (:mod:`.profiling`): ``writer.frames`` counts the
-    frames handed over; ``writer.encode`` times each frame's encode on the
-    encoder thread; ``writer.put_wait`` times the caller blocked on a full
-    queue; ``writer.drain`` times :meth:`cleanup`'s wait for the queue to
-    drain. The encoder thread keeps its spans when the writer was made
+    frames handed over; ``writer.encode`` times each frame's encode and
+    append on the encoder thread (for a frame handed over already encoded,
+    :meth:`write_jpeg`, the append alone); ``writer.put_wait`` times the
+    caller blocked on a full queue; ``writer.drain`` times
+    :meth:`cleanup`'s wait for the queue to drain. The encoder thread keeps its spans when the writer was made
     while tracing was on."""
 
-    def __init__(self, path, size, fps=24, codec="MJPG", quality=92,
-                 max_queue=64):
+    def __init__(self, path, size, fps=24, codec="MJPG",
+                 quality=JPEG_QUALITY, max_queue=64):
         super().__init__(path, size, fps=fps, codec=codec, quality=quality)
         self._queue: "queue.Queue" = queue.Queue(maxsize=max_queue)
         self._error = None
@@ -137,7 +144,9 @@ class AsyncVideoWriter(VideoWriter):
                 continue  # drain; the error surfaces in write/cleanup
             try:
                 with profiling.span("writer.encode"):
-                    if isinstance(item, tuple):
+                    if isinstance(item, bytes):
+                        self.writer.write_jpeg(item)
+                    elif isinstance(item, tuple):
                         self.writer.write_yuv420(*item)
                     else:
                         self.writer.write(item)
@@ -163,6 +172,11 @@ class AsyncVideoWriter(VideoWriter):
             raise self._error
         # Copies, so callers may reuse their planes at once.
         self._put(tuple(np.array(p, dtype=np.uint8) for p in (y, cb, cr)))
+
+    def write_jpeg(self, payload: bytes):
+        if self._error is not None:
+            raise self._error
+        self._put(bytes(payload))
 
     def cleanup(self):
         with profiling.span("writer.drain"):
